@@ -1,0 +1,32 @@
+"""repro_torch.autotune — the paper's ranking methodology as the port's
+variant selector (measured or cost-modelled), campaign-capable via the
+core ExperimentEngine. ``tuner`` is a copy of the reference's; ``variants``
+carries the ``matmul_blocks`` site on the hand-written Hopper GEMM."""
+
+from .tuner import (
+    CampaignSite,
+    TuneReport,
+    build_session,
+    prepare_site,
+    rank_site,
+    rank_site_costmodel,
+    rank_sites,
+    report_from_session,
+    reports_from_engine,
+)
+from .variants import Variant, VariantSite, matmul_blocks_site
+
+__all__ = [
+    "CampaignSite",
+    "TuneReport",
+    "Variant",
+    "VariantSite",
+    "build_session",
+    "matmul_blocks_site",
+    "prepare_site",
+    "rank_site",
+    "rank_site_costmodel",
+    "rank_sites",
+    "report_from_session",
+    "reports_from_engine",
+]

@@ -1,0 +1,33 @@
+"""Device selection and the blocking contract shared by the port's builders."""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device]
+
+
+def resolve_device(device: DeviceLike) -> torch.device:
+    """``torch.device(device)``, refusing a CUDA device the host lacks.
+
+    The port never falls back to the CPU: a caller that wants the CPU says
+    so with ``device="cpu"``.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is available; "
+            "pass device='cpu' explicitly to run on the CPU"
+        )
+    return dev
+
+
+def block(out: torch.Tensor) -> torch.Tensor:
+    """Wait until ``out`` is computed: ``torch.cuda.synchronize()`` for a
+    CUDA tensor (kernels are queued asynchronously); a CPU tensor is
+    finished when the operation returns."""
+    if out.is_cuda:
+        torch.cuda.synchronize(out.device)
+    return out
