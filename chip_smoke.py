@@ -1,39 +1,60 @@
 #!/usr/bin/env python3
-"""Run the PyTorch / H100 port's main path once on the card.
+"""Run the PyTorch / H100 port's paths once on the card.
 
     python3 chip_smoke.py
 
-The path is the paper's method, end to end: take a chain instance at paper
-size, enumerate its algorithms, time each on the card (WallClockTimer),
-rank them into performance classes (Procedures 1-4) and give the FLOPs
-discriminant verdict — once with the algorithms' GEMMs on ``torch.matmul``
-and once on the port's hand-written Hopper GEMM — then rank the GEMM's tile
-shapes against ``torch.matmul`` through the autotuner's ``rank_site``.
+The main path is the paper's method, end to end: take a chain instance at
+paper size, enumerate its algorithms, time each on the card
+(WallClockTimer), rank them into performance classes (Procedures 1-4) and
+give the FLOPs discriminant verdict — once with the algorithms' GEMMs on
+``torch.matmul`` and once on the port's hand-written Hopper GEMM — then rank
+the GEMM's tile shapes against ``torch.matmul`` through the autotuner's
+``rank_site``. The attention and SSD paths run the kernels' entry points
+(``flash_attention``, ``ssd_mix``) at the full width of qwen3-14b,
+gemma2-27b and mamba2-1.3b, and rank the ``attention_impl`` and
+``ssd_chunk`` sites.
 
 Phases (any failure exits non-zero and prints no result):
 1. record the card, toolchain and matmul precision (TF32 off);
-2. build the CUDA GEMM from ``src/repro_torch/kernels/matmul/csrc``;
+2. build the CUDA GEMM from ``src/repro_torch/kernels/matmul/csrc`` (the
+   flash-attention and SSD builds start beside it);
 3. hold the kernel against its plain version on the card, every tile;
 4. time the kernel, its plain version and ``torch.matmul`` beside the bound;
 5. the quickstart path on the four paper instances, on both GEMM routes;
-6. the ``matmul_blocks`` site through ``rank_site``.
+6. the ``matmul_blocks`` site through ``rank_site``;
+7. the flash-attention and SSD builds;
+8. flash attention: kernel against ``flash_attention_plain`` (f32, bf16)
+   on the reference's sweep, its two traps and a decode case; the
+   ``flash_attention`` path with GQA and at full width; the full-width
+   comparison's power: builds of the kernel with planted faults must fail
+   it; timing beside the bound, the plain version and
+   ``scaled_dot_product_attention``;
+9. SSD: kernel against ``ssd_scan_ref`` on the reference's sweep and
+   groups cases; the ``ssd_mix`` path at mamba2-1.3b's width; timing;
+10. the ``attention_impl`` and ``ssd_chunk`` sites, each variant first held
+   against ``attention_reference`` / ``ssd_reference``, through ``rank_site``.
 
-The launch counter of the GEMM is set to 0 just before each path and read
-just after it. The next-to-last line is a JSON object with the kernel's
-numbers, the last is ``{"ok": true, "device": {...}}``. Details go to
+Each kernel's launch counter is set to 0 just before each path and read just
+after it. The next-to-last line is a JSON object with the kernels' numbers,
+the last is ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Imports nothing of JAX or of ``repro``.
 """
 
+import concurrent.futures
 import functools
 import importlib.util
 import itertools
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke.json"
@@ -43,6 +64,53 @@ PROPERTY_SHAPES = tuple((17 * i, 23 * j, 13 * k) for i, j, k in itertools.produc
 TIMED_SHAPES = ((1000, 1000, 1000), (1024, 1024, 1024), (4096, 4096, 4096))
 INSTANCES = ("anomaly_331", "fig3_75", "instance_A", "instance_B")
 TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
+
+# Flash attention: the reference's tolerances (tests/test_kernels.py).
+FLASH_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
+# bh, sq, skv, d, causal, window, logit_cap, block_q, block_k
+FLASH_CASES = (
+    ("sweep", 2, 256, 256, 64, True, None, None, 128, 128),
+    ("sweep", 1, 128, 128, 128, False, None, None, 64, 128),
+    ("sweep", 2, 128, 512, 64, True, None, None, 64, 128),
+    ("sweep", 1, 256, 256, 64, True, 64, None, 64, 64),
+    ("sweep", 1, 256, 256, 64, True, None, 50.0, 128, 64),
+    ("trap: causal, sq > skv", 1, 128, 64, 32, True, None, None, 64, 64),
+    ("trap: window, not causal", 1, 64, 128, 32, False, 32, None, 64, 64),
+    ("decode", 8, 1, 4096, 128, True, None, None, 128, 512),
+)
+# The ops path draws q at 4x the unit scale: the scores q.k / sqrt(d) then
+# have a standard deviation of 4, the softmax is peaked and |o| is a good
+# share of |v|. At unit scale a row spreads over about i / e keys and a
+# typical |o| at s = 4096 is about 0.03, no larger than the bf16 tolerance.
+# A power of two, so q / 4 is exactly the unit-scale draw.
+FLASH_Q_SCALE = 4.0
+# Planted faults that the full-width bf16 comparison must reject: name, the
+# text of csrc/flash_attention.cu and its replacement (None: the fault is
+# made on the kernel's output), and whether the comparison must reject it.
+# p left unrounded moves each p by at most 2^-9 of itself, below the bf16
+# tolerance by design: it is recorded, not required.
+FLASH_FAULTS = (
+    ("last live kv tile skipped", "k0 < kv_end; k0 += kBK", "k0 + kBK < kv_end; k0 += kBK", True),
+    ("first live kv tile skipped from query row 2048 on", "int k0 = (kv_begin / kBK) * kBK;",
+     "int k0 = (kv_begin / kBK) * kBK + (row0 >= 2048 ? kBK : 0);", True),
+    ("rows from 512 on written as 0", None, None, True),
+    ("p not rounded to bf16", "return __bfloat162float(__float2bfloat16(p));", "return p;", False),
+)
+# The ops path: name, (b, s, h, kv, d), keyword arguments.
+FLASH_PATH = (
+    ("gqa", (2, 128, 4, 2, 32), dict(block_q=64, block_k=64)),
+    ("qwen3-14b", (1, 4096, 40, 8, 128), {}),
+    ("gemma2-27b", (1, 8192, 32, 16, 128), dict(window=4096, logit_cap=50.0)),
+)
+# SSD: the reference's f32 tolerance; b, s, h, p, n, g, chunk.
+SSD_TOL = 3e-4
+SSD_CASES = (
+    ("sweep", 2, 128, 4, 32, 16, 1, 32),
+    ("sweep", 2, 128, 4, 32, 16, 1, 64),
+    ("sweep", 2, 128, 4, 32, 16, 1, 128),
+    ("groups", 1, 64, 4, 16, 8, 2, 32),
+)
+MAMBA2 = (2, 4096, 64, 64, 128, 1, 256)  # mamba2-1.3b: b, s, h, p, n, g, chunk
 
 
 def log(msg=""):
@@ -63,7 +131,7 @@ def peaks(name):
     and HBM3. Any other card raises, so a wrong bound is never picked."""
     if "H100" not in name or "HBM3" not in name:
         raise SystemExit(f"chip_smoke: no peak table for {name!r}; the bound is for an H100 SXM")
-    return {"sku": "H100 SXM", "f32_flops": 67e12, "bytes_per_s": 3.35e12}
+    return {"sku": "H100 SXM", "f32_flops": 67e12, "bf16_flops": 989e12, "bytes_per_s": 3.35e12}
 
 
 def gemm_bound(m, k, n, in_bytes, out_bytes, peak):
@@ -74,8 +142,43 @@ def gemm_bound(m, k, n, in_bytes, out_bytes, peak):
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def cuda_ms(torch, fn, iters):
-    for _ in range(3):
+def bound(flops, nbytes, flops_per_s, peak):
+    """Least time (ms) for ``flops`` at ``flops_per_s`` and ``nbytes`` at the
+    memory rate; returns (ms, what bounds it)."""
+    t_ops, t_bytes = flops / flops_per_s, nbytes / peak["bytes_per_s"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def live_pairs(sq, skv, causal, window):
+    """(query, key) pairs the flash kernel must compute: the kernel's mask,
+    q_offset = skv - sq only when causal."""
+    pos = np.arange(sq, dtype=np.int64) + (skv - sq if causal else 0)
+    hi = np.minimum(pos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(pos - window + 1, 0) if window is not None else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def ptxas_report(lib_path):
+    """``ptxas -v``'s register lines and its nonzero spill lines, each
+    tagged with the kernel instantiation it belongs to."""
+    log_path = lib_path.with_suffix(".log")
+    used, spills, entry = [], [], "?"
+    for ln in (log_path.read_text() if log_path.exists() else "").splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+            # '_ZN51_GLOBAL__N__<hash>_18_flash_attention_cu_<hash>12flash_kernelILi32E13__nv_bfloat16EEvPK...'
+            # -> 'flash_kernel<Li32E13__nv_bfloat16>'
+            short = re.search(r"\d+([a-z]+_kernel)I(\w*?)EEv", entry)
+            entry = f"{short.group(1)}<{short.group(2)}>" if short else entry
+        elif "Used" in ln:
+            used.append(f"{entry}: {ln.split(':', 1)[1].strip()}")
+        elif "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln:
+            spills.append(f"{entry}: {ln.strip()}")
+    return used, spills
+
+
+def cuda_ms(torch, fn, iters, warmup=3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -87,13 +190,340 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+class Checks:
+    """``|out - ref| <= tol * (1 + |ref|)`` on every element (NaN fails).
+    Kept per key: the largest ``|out - ref|`` (``errs``) and the largest
+    share of the tolerance used, ``|out - ref| / (tol * (1 + |ref|))``
+    (``used``, at most 1 when every check passes); failures end the run."""
+
+    def __init__(self, torch, what):
+        self.torch, self.what = torch, what
+        self.n, self.errs, self.used, self.failures = 0, {}, {}, []
+
+    def hold(self, key, out, ref, tol, what):
+        self.n += 1
+        diff = (out.float() - ref.float()).abs()
+        allowed = tol + tol * ref.float().abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        used = float((diff / allowed).max()) if diff.numel() else 0.0
+        self.errs[key] = max(self.errs.get(key, 0.0), err)
+        self.used[key] = max(self.used.get(key, 0.0), used)
+        if not bool((diff <= allowed).all()):
+            self.failures.append(f"{what}: max_abs_err {err:.3e} > tol {tol}")
+
+    def stop_if_failed(self, phase):
+        if self.failures:
+            for f in self.failures[:20]:
+                log("  FAIL " + f)
+            sys.exit(f"chip_smoke: {self.what} disagrees with its plain version ({phase})")
+
+
+def build_fault(fmod, build_library, tmp, index, old, new):
+    """Build ``csrc/flash_attention.cu`` with ``old`` replaced by ``new``
+    into ``tmp`` (outside the checkout) and return the library's path."""
+    src = fmod.SOURCE.read_text()
+    if src.count(old) != 1:
+        raise SystemExit(f"chip_smoke: planted fault text {old!r} not found once in {fmod.SOURCE}")
+    path = Path(tmp) / f"flash_attention_fault{index}.cu"
+    path.write_text(src.replace(old, new))
+    return build_library(path, Path(tmp))
+
+
+def flash_power(torch, fmod, fault_libs, entry, plain, q, k, v):
+    """The power of the full-width bf16 comparison: the share of its
+    tolerance, max |out - plain| / (tol * (1 + |plain|)), that the kernel
+    and each planted fault use, on the path's q and on q at unit scale.
+    Returns the shares and the required faults that the path's comparison
+    did not reject. The faults' launches are not counted."""
+    tol = FLASH_TOL["bfloat16"]
+
+    def share(out, ref):
+        return float(((out.float() - ref.float()).abs() / (tol * (1 + ref.float().abs()))).max())
+
+    real_library, launches = fmod._library, fmod.flash_attention_kernel.launches
+    shares = {}
+    for label, qs in (("path", q), ("unit scale", (q.float() / FLASH_Q_SCALE).to(q.dtype))):
+        ref = plain(qs, k, v)
+        out = entry(qs, k, v)
+        row = {"kernel": share(out, ref)}
+        for name, old, _, _ in FLASH_FAULTS:
+            if old is None:
+                bad = out.clone()
+                bad[:, 512:] = 0
+            else:
+                fmod._library = functools.partial(fmod.bind, fault_libs[name])
+                try:
+                    bad = entry(qs, k, v)
+                finally:
+                    fmod._library = real_library
+            row[name] = share(bad, ref)
+        shares[label] = row
+    torch.cuda.synchronize()
+    fmod.flash_attention_kernel.launches = launches
+    missed = [name for name, _, _, must in FLASH_FAULTS if must and shares["path"][name] <= 1.0]
+    return shares, missed
+
+
+def sdpa_call(torch, q, k, v):
+    """One ``scaled_dot_product_attention`` call on the model layout (causal,
+    GQA) and the backend PyTorch's dispatcher picks for it; the yardstick
+    only, the port never calls it."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    backend = "not recorded"
+    if hasattr(torch, "_fused_sdp_choice"):
+        choice = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, True, enable_gqa=True)
+        names = {m.value: n for n, m in torch.nn.attention.SDPBackend.__members__.items()}
+        backend = names.get(choice, str(choice))
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    return call, backend
+
+
+def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
+    """Phase 8: flash attention against its plain version, its ops path, the
+    power of the full-width comparison and the timing. Returns the phase's
+    record with the kernel's JSON entry."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    checks = Checks(torch, "the flash-attention kernel")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dtypes = (torch.float32, torch.bfloat16)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def plain_by_head(q, k, v, **kw):
+        """The plain version on [b, s, h, d], head by head (the scores of
+        all heads at once would not fit: 8.6 GB at gemma2-27b's width)."""
+        g = q.shape[2] // k.shape[2]
+        return torch.stack([flash_attention_plain(q[:, :, i], k[:, :, i // g], v[:, :, i // g], **kw)
+                            for i in range(q.shape[2])], dim=2)
+
+    for (label, bh, sq, skv, d, causal, win, cap, bq, bk), dtype in itertools.product(FLASH_CASES, dtypes):
+        key = str(dtype).split(".")[1]
+        q, k, v = randn(bh, sq, d, dtype=dtype), randn(bh, skv, d, dtype=dtype), randn(bh, skv, d, dtype=dtype)
+        kw = dict(causal=causal, window=win, logit_cap=cap)
+        out = fmod.flash_attention_kernel(q, k, v, block_q=bq, block_k=bk, **kw)
+        torch.cuda.synchronize()
+        checks.hold(key, out, flash_attention_plain(q, k, v, **kw), FLASH_TOL[key],
+                    f"{label} {key} {(bh, sq, skv, d, causal, win, cap)}")
+        if causal and sq > skv:  # the first sq - skv queries see no key: exactly 0
+            checks.hold(key, out[:, : sq - skv], torch.zeros_like(out[:, : sq - skv]), 0.0,
+                        f"{label} {key}: rows that see no key")
+    log(f"[8 flash] kernel vs plain, {checks.n} checks (sweep, traps, decode; f32 and bf16): "
+        f"max_abs_err {checks.errs}, failures {len(checks.failures)}")
+    checks.stop_if_failed("phase 8, kernel cases")
+
+    inputs = {}
+    for (name, (b, s, h, kv, d), _), dtype in itertools.product(FLASH_PATH, dtypes):
+        inputs[name, dtype] = (randn(b, s, h, d, dtype=dtype, scale=FLASH_Q_SCALE),
+                               randn(b, s, kv, d, dtype=dtype), randn(b, s, kv, d, dtype=dtype))
+    outs = {}
+    fmod.flash_attention_kernel.launches = 0
+    for (name, _, kw), dtype in itertools.product(FLASH_PATH, dtypes):
+        outs[name, dtype] = flash_attention(*inputs[name, dtype], **kw)
+    torch.cuda.synchronize()
+    launches["flash_attention[ops]"] = fmod.flash_attention_kernel.launches
+    log(f"[8 flash] ops path (gqa, qwen3-14b, gemma2-27b; f32 and bf16): flash kernel launches "
+        f"{launches['flash_attention[ops]']}")
+    if launches["flash_attention[ops]"] == 0:
+        sys.exit("chip_smoke: the flash_attention path launched no flash-attention kernel")
+    for (name, _, kw), dtype in itertools.product(FLASH_PATH, dtypes):
+        key = str(dtype).split(".")[1]
+        pkw = {a: kw[a] for a in ("window", "logit_cap") if a in kw}
+        checks.hold(key, outs[name, dtype], plain_by_head(*inputs[name, dtype], **pkw),
+                    FLASH_TOL[key], f"ops path {name} {key}")
+    del outs
+    log(f"[8 flash] ops path vs plain (q at {FLASH_Q_SCALE:g}x unit scale): max_abs_err "
+        f"{checks.errs}, share of tolerance used {checks.used}, failures {len(checks.failures)}")
+    checks.stop_if_failed("phase 8, ops path")
+
+    power, missed = flash_power(torch, fmod, fault_libs, lambda q, k, v: flash_attention(q, k, v),
+                                plain_by_head, *inputs["qwen3-14b", torch.bfloat16])
+    for label, row in power.items():
+        log(f"[8 power] qwen3-14b bf16, q at {label}: share of tolerance used by "
+            + ", ".join(f"{n_}: {x:.4g}" for n_, x in row.items()))
+    if missed:
+        sys.exit(f"chip_smoke: the full-width flash comparison does not reject {missed}")
+
+    rows = []
+    for (name, (b, s, h, kv, d), kw), dtype in itertools.product(FLASH_PATH[1:], dtypes):
+        key = str(dtype).split(".")[1]
+        q, k, v = inputs[name, dtype]
+        pkw = {a: kw[a] for a in ("window", "logit_cap") if a in kw}
+        flops = 4.0 * d * b * h * live_pairs(s, s, True, kw.get("window"))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bound_ms, bound_by = bound(flops, nbytes, peak["f32_flops" if key == "float32" else "bf16_flops"], peak)
+        row = {"config": name, "dtype": key, "shape": [b, s, h, kv, d], "flops": flops, "bytes": nbytes,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "ms": cuda_ms(torch, lambda: flash_attention(q, k, v, **kw), 5),
+               "plain_ms": cuda_ms(torch, lambda: plain_by_head(q, k, v, **pkw), 2, warmup=1)}
+        if name == "qwen3-14b":
+            call, backend = sdpa_call(torch, q, k, v)
+            row["library_ms"] = cuda_ms(torch, call, 5)
+            row["library"] = f"scaled_dot_product_attention(is_causal=True, enable_gqa=True), {backend}"
+            row["library_max_abs_diff_vs_kernel"] = float((call().float() - flash_attention(q, k, v).float()).abs().max())
+        else:
+            row["library_ms"] = None
+            row["library"] = "none: no single PyTorch call applies the tanh softcap"
+        rows.append(row)
+        log(f"[8 time] {name} {key}: kernel {row['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"plain {row['plain_ms']:.4f} ms, library "
+            + (f"{row['library_ms']:.4f} ms ({row['library']})" if row["library_ms"] is not None
+               else f"- ({row['library']})"))
+    head = next(r for r in rows if r["config"] == "qwen3-14b" and r["dtype"] == "bfloat16")
+    kernel = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:103",
+        "launches": launches["flash_attention[ops]"],
+        "max_abs_err": max(checks.errs.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "tolerance": FLASH_TOL, "config": "qwen3-14b", "dtype": "bfloat16", "shape": head["shape"],
+        "max_abs_err_by_dtype": checks.errs,
+        "launches_by_path": {"flash_attention[ops]": launches["flash_attention[ops]"]},
+    }
+    return {"checks": checks.n, "max_abs_err": checks.errs, "tolerance_used": checks.used,
+            "tolerance": FLASH_TOL, "q_scale_of_path": FLASH_Q_SCALE, "power": power,
+            "timings": rows, "kernel": kernel}
+
+
+def phase_ssd(torch, dev, peak, smod, launches):
+    """Phase 9: the SSD kernel against its plain version, the ``ssd_mix``
+    path at mamba2-1.3b's width and its timing."""
+    from repro_torch.kernels.ssd.ops import ssd_mix
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+
+    checks = Checks(torch, "the SSD kernel")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def mixer_inputs(b, s, h, p, n, g):
+        """The reference tests' distributions: dt = softplus(N(0, 1)),
+        a_log = N(0, 0.5^2)."""
+        r = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+        return (r(b, s, h, p), torch.nn.functional.softplus(r(b, s, h)), r(h) * 0.5,
+                r(b, s, g, n), r(b, s, g, n))
+
+    def kernel_inputs(x, dt, a_log):
+        return x * dt[..., None], dt * -torch.exp(a_log)  # xbar, logda
+
+    def plain(xbar, logda, bm, cm):
+        b, s, h, p = xbar.shape
+        y, _ = ssd_scan_ref(*smod.heads_flat(xbar, logda, bm, cm))
+        return y.reshape(b, h, s, p).transpose(1, 2)
+
+    for label, b, s, h, p, n, g, chunk in SSD_CASES:
+        x, dt, a_log, bm, cm = mixer_inputs(b, s, h, p, n, g)
+        xbar, logda = kernel_inputs(x, dt, a_log)
+        out = smod.ssd_scan_kernel(xbar, logda, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        checks.hold("float32", out, plain(xbar, logda, bm, cm), SSD_TOL,
+                    f"{label} {(b, s, h, p, n, g, chunk)}")
+    log(f"[9 ssd] kernel vs plain, {checks.n} checks (sweep chunks 32/64/128, groups): "
+        f"max_abs_err {checks.errs}, failures {len(checks.failures)}")
+    checks.stop_if_failed("phase 9, kernel cases")
+
+    b, s, h, p, n, g, chunk = MAMBA2
+    x, dt, a_log, bm, cm = mixer_inputs(b, s, h, p, n, g)
+    smod.ssd_scan_kernel.launches = 0
+    y = ssd_mix(x, dt, a_log, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    launches["ssd[ssd_mix]"] = smod.ssd_scan_kernel.launches
+    log(f"[9 ssd] ssd_mix path at mamba2-1.3b {MAMBA2}: SSD kernel launches {launches['ssd[ssd_mix]']}")
+    if launches["ssd[ssd_mix]"] == 0:
+        sys.exit("chip_smoke: the ssd_mix path launched no SSD kernel")
+    checks.hold("float32", y, ssd_mix(x, dt, a_log, bm, cm, use_kernel=False), SSD_TOL,
+                "ssd_mix mamba2-1.3b")
+    xbar, logda = kernel_inputs(x, dt, a_log)
+    # the largest cum_i - cum_j above a chunk's diagonal; exp overflows f32 above 88.72
+    span = float((-logda).reshape(b, s // chunk, chunk, h)[:, :, 1:].sum(dim=2).max())
+    log(f"[9 ssd] ssd_mix vs plain: max_abs_err {checks.errs}, share of tolerance used "
+        f"{checks.used}, failures {len(checks.failures)}; "
+        f"largest exponent above the diagonal {span:.1f} (f32 exp overflows: {span > 88.72})")
+    checks.stop_if_failed("phase 9, ssd_mix path")
+
+    # The work this data needs: the lower triangle with its diagonal, C B^T
+    # once per (batch, group, chunk), the rest per head.
+    flops = b * s * (g * (chunk + 1) * n + h * ((chunk + 1) * p + 4.0 * p * n))
+    flops_kernel = b * s * h * ((chunk + 1) * (n + p) + 4.0 * p * n)  # C B^T again for every head
+    flops_ref = b * s * h * (2.0 * chunk * n + 2.0 * chunk * p + 4.0 * p * n)  # variants.py's formula
+    nbytes = 4 * (2 * xbar.numel() + logda.numel() + bm.numel() + cm.numel())  # y = xbar's size
+    bound_ms, bound_by = bound(flops, nbytes, peak["f32_flops"], peak)
+    flat = smod.heads_flat(xbar, logda, bm, cm)
+    row = {"config": "mamba2-1.3b", "dtype": "float32", "shape": list(MAMBA2), "flops": flops,
+           "flops_reference_formula": flops_ref, "flops_kernel_does": flops_kernel,
+           "bytes": nbytes, "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "ms": cuda_ms(torch, lambda: smod.ssd_scan_kernel(xbar, logda, bm, cm, chunk=chunk), 10),
+           "plain_ms": cuda_ms(torch, lambda: ssd_scan_ref(*flat), 2, warmup=1),
+           "library_ms": None, "library": "none: no single PyTorch call computes the SSD scan",
+           "largest_exponent_above_diagonal": span}
+    log(f"[9 time] mamba2-1.3b f32: kernel {row['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{flops:.3e} flops; the kernel does {flops_kernel:.3e}, the site's formula counts "
+        f"{flops_ref:.3e}), plain {row['plain_ms']:.4f} ms, "
+        f"library - ({row['library']})")
+    kernel = {
+        "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:72",
+        "launches": launches["ssd[ssd_mix]"], "max_abs_err": max(checks.errs.values()),
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "tolerance": SSD_TOL, "config": "mamba2-1.3b", "dtype": "float32",
+        "shape": list(MAMBA2), "launches_by_path": {"ssd[ssd_mix]": launches["ssd[ssd_mix]"]},
+    }
+    return {"checks": checks.n, "max_abs_err": checks.errs, "tolerance_used": checks.used,
+            "tolerance": SSD_TOL, "timings": [row], "kernel": kernel}
+
+
+def phase_sites(torch, rank_site, attention_site, ssd_chunk_site):
+    """Phase 10: the attention_impl and ssd_chunk sites at the reference's
+    defaults, each variant held against the oracle on the site's own seed-0
+    inputs, then ranked."""
+    from repro_torch.models.attention import attention_reference
+    from repro_torch.models.mamba2 import ssd_reference
+
+    checks = Checks(torch, "a site variant")
+    att = attention_site()
+    q, k, v = att.make_inputs(0)
+    oracle = attention_reference(q, k, v)
+    for variant in att.variants:  # 2e-4: blockwise against full scores, the reference's
+        checks.hold(variant.name, variant.build(q, k, v)(), oracle, 2e-4, f"{att.name} {variant.name}")
+    del q, k, v, oracle
+    ssd = ssd_chunk_site()
+    x, dt, a_log, bm, cm = ssd.make_inputs(0)
+    oracle, _ = ssd_reference(x, dt, a_log, bm, cm)
+    for variant in ssd.variants:
+        checks.hold(variant.name, variant.build(x, dt, a_log, bm, cm)(), oracle, SSD_TOL,
+                    f"{ssd.name} {variant.name}")
+    del x, dt, a_log, bm, cm, oracle
+    log(f"[10 autotune] {checks.n} site variants vs oracle: max_abs_err {checks.errs}, "
+        f"share of tolerance used {checks.used}, failures {len(checks.failures)}")
+    checks.stop_if_failed("phase 10")
+    out = {"max_abs_err": checks.errs, "tolerance_used": checks.used}
+    for site in (att, ssd):
+        report = rank_site(site)
+        log("[10 autotune] " + report.summary().replace("\n", "\n    "))
+        out[site.name] = {
+            "ranks": report.ranking.ranks, "mean_ranks": report.ranking.mean_ranks,
+            "selected": report.selected,
+            "single_run_ms": {k_: t * 1e3 for k_, t in report.single_run_times.items()},
+            "dropped": list(report.dropped), "flops": site.flops_table(),
+            "verdict": report.discriminant.reason if report.discriminant.is_anomaly else "valid",
+        }
+    return out
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's path runs only on the card")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.autotune import matmul_blocks_site, rank_site
+    from repro_torch.autotune import attention_site, matmul_blocks_site, rank_site, ssd_chunk_site
     from repro_torch.core import (
         WallClockTimer,
         flops_discriminant_test,
@@ -108,7 +538,10 @@ def main():
         make_chain_inputs,
         verify_algorithms,
     )
+    from repro_torch.kernels.build import build_library
+    from repro_torch.kernels.flash_attention import flash_attention as fmod
     from repro_torch.kernels.matmul import matmul as kmod
+    from repro_torch.kernels.ssd import ssd as smod
     from repro_torch.kernels.matmul.ops import chain_matmul, matmul
     from repro_torch.kernels.matmul.ref import matmul_ref
 
@@ -139,14 +572,19 @@ def main():
     log("[1 setup] " + json.dumps(setup))
 
     # ---------------------------------------------------------- 2. build --
+    # one nvcc per source, all started together: flash attention, SSD and
+    # the flash faults of phase 8 beside the GEMM
+    builds = concurrent.futures.ThreadPoolExecutor(max_workers=2 + len(FLASH_FAULTS))
+    t_builds = time.perf_counter()
+    later_builds = {"flash_attention": builds.submit(fmod.build), "ssd": builds.submit(smod.build)}
+    fault_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_flash_faults_")
+    fault_builds = {name: builds.submit(build_fault, fmod, build_library, fault_dir.name, i, old, new)
+                    for i, (name, old, new, _) in enumerate(FLASH_FAULTS) if old is not None}
     t0 = time.perf_counter()
     lib_path = kmod.build()
     kmod._library()
     build_s = time.perf_counter() - t0
-    ptxas = lib_path.with_suffix(".log").read_text() if lib_path.with_suffix(".log").exists() else ""
-    used = [ln.split(":", 1)[1].strip() for ln in ptxas.splitlines() if "Used" in ln]
-    spills = [ln.strip() for ln in ptxas.splitlines()
-              if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    used, spills = ptxas_report(lib_path)
     details["build"] = {"seconds": build_s, "library": str(lib_path.relative_to(ROOT)),
                         "ptxas_used": used, "ptxas_spills": spills}
     log(f"[2 build] {lib_path.name} in {build_s:.1f} s; {len(used)} kernels; "
@@ -156,23 +594,8 @@ def main():
 
     # ---------------------------------------------- 3. kernel vs plain ---
     gen = torch.Generator(device=dev).manual_seed(0)
-    failures, errs = [], {"float32": 0.0, "bfloat16": 0.0, "chain": 0.0}
-    n_checks = 0
-
-    def fail_on(what):
-        if failures:
-            for f in failures[:20]:
-                log("  FAIL " + f)
-            sys.exit(f"chip_smoke: the GEMM kernel disagrees with its plain version ({what})")
-
-    def compare(kind, out, ref, tol, what):
-        nonlocal n_checks
-        n_checks += 1
-        diff = (out.float() - ref.float()).abs()
-        err = float(diff.max()) if diff.numel() else 0.0
-        errs[kind] = max(errs[kind], err)
-        if not bool((diff <= tol + tol * ref.float().abs()).all()):
-            failures.append(f"{what}: max_abs_err {err:.3e} > tol {tol}")
+    gemm_checks = Checks(torch, "the GEMM kernel")
+    compare, fail_on = gemm_checks.hold, gemm_checks.stop_if_failed
 
     for tile in kmod.SUPPORTED_TILES:
         bm, bn, bk = tile
@@ -200,8 +623,8 @@ def main():
             plain = chain_matmul(alg, mats, use_kernel=False)
             torch.cuda.synchronize()
             compare("chain", out, plain, TOL["chain"], f"chain {inst_name} {alg.name} tile {tile}")
-    log(f"[3 kernel vs plain] {n_checks} checks, |kernel - plain| <= tol * (1 + |plain|) "
-        f"with tol {TOL}: max_abs_err {errs}, failures {len(failures)}")
+    log(f"[3 kernel vs plain] {gemm_checks.n} checks, |kernel - plain| <= tol * (1 + |plain|) "
+        f"with tol {TOL}: max_abs_err {gemm_checks.errs}, failures {len(gemm_checks.failures)}")
     fail_on("phase 3")
 
     # ------------------------------------------------------------ 4. time --
@@ -300,8 +723,36 @@ def main():
     if launches["autotune[matmul_blocks]"] == 0:
         sys.exit("chip_smoke: the autotune path launched no GEMM kernel")
     details["launches"] = launches
-    details["correctness"] = {"checks": n_checks, "max_abs_err": errs, "tolerance": TOL}
-    log(f"[checks] {n_checks} kernel-vs-plain checks in phases 3, 4 and 6: max_abs_err {errs}")
+    details["correctness"] = {"checks": gemm_checks.n, "max_abs_err": gemm_checks.errs,
+                              "tolerance_used": gemm_checks.used, "tolerance": TOL}
+    log(f"[checks] {gemm_checks.n} kernel-vs-plain checks in phases 3, 4 and 6: "
+        f"max_abs_err {gemm_checks.errs}")
+    gemm_launches = dict(launches)
+
+    # ---------------------------------------------------------- 7. builds --
+    built = {}
+    for kname, future in later_builds.items():
+        path = future.result()
+        used, spills = ptxas_report(path)
+        built[kname] = {"library": str(path.relative_to(ROOT)), "ptxas_used": used,
+                        "ptxas_spills": spills}
+        log(f"[7 build] {path.name}; {len(used)} kernels; nonzero spill lines: {len(spills)}")
+        for line in used + spills:
+            log(f"  ptxas: {line}")
+    fault_libs = {name: future.result() for name, future in fault_builds.items()}
+    builds.shutdown()
+    fmod._library()
+    smod._library()
+    built["seconds_from_start_of_phase_2"] = time.perf_counter() - t_builds
+    details["build_attention_ssd"] = built
+
+    flash = phase_flash(torch, dev, peak, fmod, fault_libs, launches)
+    fault_dir.cleanup()
+    details["flash_attention"] = flash
+    ssd = phase_ssd(torch, dev, peak, smod, launches)
+    details["ssd"] = ssd
+    details["sites"] = phase_sites(torch, rank_site, attention_site, ssd_chunk_site)
+    details["launches"] = launches
 
     # ---------------------------------------------------------- results --
     main_row = timings[0]  # 1000^3, the chain GEMMs of instance_B
@@ -312,20 +763,21 @@ def main():
         "source": "src/repro_torch/kernels/matmul/csrc/gemm.cu",
         "replaces": "src/repro/kernels/matmul/matmul.py:45",
         "launches": launches["quickstart[hand_gemm]"] + launches["autotune[matmul_blocks]"],
-        "max_abs_err": max(errs.values()),
+        "max_abs_err": max(gemm_checks.errs.values()),
         "ms": main_row["kernel_ms"][tile_key],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "tolerance": TOL, "shape": main_row["shape"], "tile": list(default_tile),
-        "launches_by_path": launches,
+        "launches_by_path": gemm_launches,
     }
-    details["kernels"] = [kernel]
+    kernels = [kernel, flash["kernel"], ssd["kernel"]]
+    details["kernels"] = kernels
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(details, indent=1))
     log(card)
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
 

@@ -1,7 +1,8 @@
 """repro_torch.autotune — the paper's ranking methodology as the port's
 variant selector (measured or cost-modelled), campaign-capable via the
 core ExperimentEngine. ``tuner`` is a copy of the reference's; ``variants``
-carries the ``matmul_blocks`` site on the hand-written Hopper GEMM."""
+carries the ``attention_impl`` and ``ssd_chunk`` sites and the
+``matmul_blocks`` site on the hand-written Hopper GEMM."""
 
 from .tuner import (
     CampaignSite,
@@ -14,13 +15,20 @@ from .tuner import (
     report_from_session,
     reports_from_engine,
 )
-from .variants import Variant, VariantSite, matmul_blocks_site
+from .variants import (
+    Variant,
+    VariantSite,
+    attention_site,
+    matmul_blocks_site,
+    ssd_chunk_site,
+)
 
 __all__ = [
     "CampaignSite",
     "TuneReport",
     "Variant",
     "VariantSite",
+    "attention_site",
     "build_session",
     "matmul_blocks_site",
     "prepare_site",
@@ -29,4 +37,5 @@ __all__ = [
     "rank_sites",
     "report_from_session",
     "reports_from_engine",
+    "ssd_chunk_site",
 ]

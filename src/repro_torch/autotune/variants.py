@@ -4,14 +4,19 @@ A :class:`VariantSite` is the framework's unit of algorithm choice — the
 exact object the paper's methodology ranks. Every variant carries an
 analytic FLOP count, so the FLOPs-discriminant test applies directly.
 
-This slice of the port carries one site:
-
+* ``attention_impl`` — reference (grouped / broadcast GQA) and chunked
+  attention (``models/attention.py``): equal math; chunked computes the
+  masked blocks too, reference materialises the score matrix. Neither FLOPs
+  nor bytes alone predicts the winner across shapes.
+* ``ssd_chunk`` — Mamba-2 chunk length (``models/mamba2.py``): equal
+  leading-order FLOPs.
 * ``matmul_blocks`` — the hand-written Hopper GEMM's tile shapes plus the
   library baseline ``torch_matmul`` (cuBLAS; the reference's ``xla_dot``):
   equal FLOPs exactly.
 
-The attention, MoE-dispatch and SSD-chunk sites come with the slices that
-port their models.
+Like the reference's, the attention and SSD sites time the plain model
+code; neither has a kernel variant. The MoE-dispatch site comes with the
+slice that ports ``models/moe.py``.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import torch
 from ..device import DeviceLike, block, resolve_device
 from ..kernels.matmul.matmul import check_tile
 from ..kernels.matmul.ops import matmul
+from ..models.attention import attention_chunked, attention_reference
+from ..models.mamba2 import ssd_chunked
 
 Thunk = Callable[[], Any]
 
@@ -65,6 +72,93 @@ def _thunk(fn, *tensors):
         return block(fn(*tensors))
 
     return run
+
+
+# ------------------------------------------------------- attention site ----
+
+def attention_site(
+    b: int = 2, s: int = 1024, h: int = 8, kv: int = 2, d: int = 64,
+    dtype: torch.dtype = torch.float32,
+    device: DeviceLike = "cuda",
+) -> VariantSite:
+    dev = resolve_device(device)
+
+    def inputs(seed: int):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
+        return [q, k, v]
+
+    # score FLOPs: rectangle for both impls (masked blocks computed)
+    f_scores = 2.0 * b * h * s * s * d * 2
+    f_ref = f_scores
+    f_chunk = f_scores
+
+    def ref_grouped(q, k, v):
+        return _thunk(lambda q, k, v: attention_reference(q, k, v, gqa="grouped"), q, k, v)
+
+    def ref_broadcast(q, k, v):
+        return _thunk(lambda q, k, v: attention_reference(q, k, v, gqa="broadcast"), q, k, v)
+
+    def chunked(q, k, v):
+        return _thunk(
+            lambda q, k, v: attention_chunked(
+                q, k, v, q_block=min(256, s), kv_block=min(512, s)
+            ),
+            q, k, v,
+        )
+
+    return VariantSite(
+        name=f"attention[b{b} s{s} h{h}kv{kv} d{d}]",
+        variants=(
+            Variant("reference_grouped", f_ref, ref_grouped),
+            Variant("reference_broadcast", f_ref, ref_broadcast,
+                    {"extra_traffic": "K/V repeated to H heads"}),
+            Variant("chunked_flash", f_chunk, chunked,
+                    {"memory": "O(s*block) not O(s^2)"}),
+        ),
+        make_inputs=inputs,
+    )
+
+
+# ------------------------------------------------------------- SSD site ----
+
+def ssd_chunk_site(
+    b: int = 2, s: int = 2048, h: int = 8, p: int = 32, n: int = 32,
+    chunks: Sequence[int] = (64, 128, 256, 512),
+    dtype: torch.dtype = torch.float32,
+    device: DeviceLike = "cuda",
+) -> VariantSite:
+    dev = resolve_device(device)
+
+    def inputs(seed: int):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+        a_log = torch.randn((h,), generator=gen, device=dev) * 0.5
+        bm = torch.randn((b, s, 1, n), generator=gen, device=dev)
+        cm = torch.randn((b, s, 1, n), generator=gen, device=dev)
+        return [x, dt, a_log, bm, cm]
+
+    def make(chunk):
+        def build(x, dt, a_log, bm, cm):
+            return _thunk(
+                lambda x, dt, a_log, bm, cm: ssd_chunked(x, dt, a_log, bm, cm, chunk)[0],
+                x, dt, a_log, bm, cm,
+            )
+        return build
+
+    def flops(q):
+        return b * s * h * (2.0 * q * n + 2.0 * q * p + 4.0 * p * n)
+
+    return VariantSite(
+        name=f"ssd_chunk[s{s} h{h} p{p} n{n}]",
+        variants=tuple(
+            Variant(f"chunk_{q}", flops(q), make(q), {"chunk": q}) for q in chunks
+        ),
+        make_inputs=inputs,
+    )
 
 
 # ---------------------------------------------------------- matmul site ----

@@ -8,6 +8,9 @@ tensors. Import the callables from their defining modules
 (``repro_torch.kernels.matmul.ops``): this package re-exports nothing, so
 the ``matmul`` subpackage is never shadowed by the like-named function.
 
-Ported: the blocked GEMM (``matmul``). Flash attention and the Mamba-2 SSD
-scan come with later slices of the port.
+Ported, each as CUDA C++ for ``sm_90a`` built with nvcc and bound with
+``ctypes`` (:mod:`repro_torch.kernels.build`): the blocked GEMM
+(``matmul``), flash attention (``flash_attention``) and the Mamba-2 SSD
+chunk scan (``ssd``, entry point ``ssd.ops.ssd_mix``) — every TPU kernel
+of the reference.
 """

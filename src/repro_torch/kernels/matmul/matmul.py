@@ -19,24 +19,20 @@ reference's ``min(block, dim)`` clamping is not needed.
 
 Build: at first launch, ``nvcc`` compiles the source for ``sm_90a`` into a
 shared library with a plain C interface under ``build/`` beside this file
-(named by a hash of the source and flags, so an edit rebuilds). Nothing is
-built or imported from CUDA when this module is imported.
+(:mod:`repro_torch.kernels.build`). Nothing is built or imported from CUDA
+when this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from ..build import NVCC_FLAGS, build_library  # noqa: F401  (NVCC_FLAGS: the build's flags)
 from .ref import matmul_ref
 
 #: (block_m, block_n, block_k) tiles instantiated in csrc/gemm.cu: the
@@ -55,54 +51,14 @@ DEFAULT_TILE: Tuple[int, int, int] = (64, 64, 64)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gemm.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
-)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA GEMM is built from source at first use")
-
-
 def build() -> Path:
     """Compile ``csrc/gemm.cu`` (once per source and flags) and return the
-    shared library's path. ``ptxas -v``'s report (registers, shared memory
-    and spills of every instantiation) is kept beside it as ``.log``."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libgemm-{key}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
+    shared library's path (:func:`repro_torch.kernels.build.build_library`)."""
+    return build_library(SOURCE, BUILD_DIR)
 
 
 @functools.lru_cache(maxsize=None)

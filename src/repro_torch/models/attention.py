@@ -1,0 +1,272 @@
+"""Attention in several mathematically equivalent implementations (the
+``attention_impl`` autotune site) plus KV-cache decode — the reference's
+``models/attention.py`` without the parameter code (``init_attention``,
+``project_qkv``, ``project_out`` and the ``attention`` dispatcher come with
+the model stack).
+
+* ``attention_reference`` — materialises the ``[.., sq, skv]`` scores; the
+  correctness oracle. ``gqa="grouped"`` keeps K/V at kv-head granularity,
+  ``"broadcast"`` repeats them to the query heads: equal FLOPs, different
+  memory traffic.
+* ``attention_chunked`` — blockwise online softmax (the flash formulation)
+  as nested loops over q and kv blocks; masked blocks are computed too.
+* ``attention_local_chunked`` — sliding window, each q block slicing only
+  the kv span it can see.
+
+The reference's ``lax.scan`` loops are Python loops here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Union
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .layers import softcap
+
+NEG_INF = -2.0e38  # f32-safe mask value
+
+
+# ------------------------------------------------------------ mask logic ---
+
+def _mask_bias(
+    q_pos: torch.Tensor,      # [sq]
+    kv_pos: torch.Tensor,     # [skv]
+    causal: bool,
+    window: Optional[int],
+    kv_len: Optional[Union[int, torch.Tensor]] = None,  # valid cache length
+) -> torch.Tensor:
+    """Additive bias [sq, skv]: 0 where allowed, NEG_INF where masked."""
+    allowed = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        allowed &= kv_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        allowed &= kv_pos[None, :] > q_pos[:, None] - window
+    if kv_len is not None:
+        allowed &= kv_pos[None, :] < kv_len
+    return torch.zeros(allowed.shape, dtype=torch.float32, device=q_pos.device).masked_fill(
+        ~allowed, NEG_INF)
+
+
+# -------------------------------------------------------------- variants ---
+
+def attention_reference(
+    q: torch.Tensor,          # [b, sq, H, hd]
+    k: torch.Tensor,          # [b, skv, K, hd]
+    v: torch.Tensor,          # [b, skv, K, hd]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+    q_offset: int = 0,
+    gqa: str = "grouped",  # "grouped" | "broadcast"
+) -> torch.Tensor:
+    """Full-scores attention. O(sq*skv) memory; correctness oracle."""
+    b, sq, h, hd = q.shape
+    kheads = k.shape[2]
+    g = h // kheads
+    scale = 1.0 / math.sqrt(hd)
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    bias = _mask_bias(q_pos, kv_pos, causal, window)
+
+    if gqa == "broadcast":
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+        scores = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
+        scores = softcap(scores, logit_cap) + bias[None, None]
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bhqs,bshk->bqhk", probs, v)
+    # grouped: keep K/V at kv-head granularity
+    qg = q.reshape(b, sq, kheads, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale
+    scores = softcap(scores, logit_cap) + bias[None, None, None]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def attention_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+    q_block: int = 512,
+    kv_block: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Blockwise online-softmax attention (flash formulation, plain PyTorch).
+
+    Outer loop over q blocks, inner loop over kv blocks, carrying
+    (m, l, acc) running max / normaliser / weighted accumulator. Memory is
+    O(q_block * kv_block) per step. Masked (future) blocks are computed and
+    discarded.
+    """
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    kheads = k.shape[2]
+    g = h // kheads
+    if sq % q_block != 0 or skv % kv_block != 0:
+        raise ValueError(f"seq ({sq},{skv}) not divisible by blocks ({q_block},{kv_block})")
+    nq, nk = sq // q_block, skv // kv_block
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+
+    qb = q.reshape(b, nq, q_block, kheads, g, hd)
+    kb = k.reshape(b, nk, kv_block, kheads, hd)
+    vb = v.reshape(b, nk, kv_block, kheads, hd)
+
+    blocks = []
+    for i in range(nq):
+        qi = qb[:, i]  # [b, q_block, K, g, hd]
+        q_pos = torch.arange(q_block, device=dev) + i * q_block + q_offset
+        m = torch.full((b, kheads, g, q_block), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, kheads, g, q_block), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, kheads, g, q_block, hd), dtype=torch.float32, device=dev)
+        for j in range(nk):
+            kj, vj = kb[:, j], vb[:, j]
+            kv_pos = torch.arange(kv_block, device=dev) + j * kv_block
+            s = torch.einsum("bqkgd,bskd->bkgqs", qi, kj).float() * scale
+            s = softcap(s, logit_cap)
+            allowed = torch.ones((q_block, kv_block), dtype=torch.bool, device=dev)
+            if causal:
+                allowed &= kv_pos[None, :] <= q_pos[:, None]
+            if window is not None:
+                allowed &= kv_pos[None, :] > q_pos[:, None] - window
+            s = torch.where(allowed, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # guard fully-masked rows (m_new == NEG_INF)
+            m_safe = torch.where(m_new <= NEG_INF * 0.5, 0.0, m_new)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(allowed, p, 0.0)
+            alpha = torch.where(m <= NEG_INF * 0.5, 0.0, torch.exp(m - m_safe))
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(qi.dtype), vj).float()
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        l_safe = torch.where(l == 0.0, 1.0, l)
+        out = (acc / l_safe[..., None]).to(q.dtype)  # [b, K, g, qb, hd]
+        blocks.append(out.permute(0, 3, 1, 2, 4))   # [b, qb, K, g, hd]
+    return torch.cat(blocks, dim=1).reshape(b, sq, h, hd)
+
+
+def attention_local_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int,
+    logit_cap: Optional[float] = None,
+    q_block: int = 512,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Sliding-window attention with true FLOPs savings: each q block slices
+    only the kv span it can see (length window + q_block), so cost is
+    O(s * window) instead of O(s²). Causal by construction."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    kheads = k.shape[2]
+    g = h // kheads
+    if sq % q_block != 0:
+        raise ValueError(f"sq {sq} % q_block {q_block} != 0")
+    span = window + q_block  # slice length
+    if span >= skv:
+        return attention_chunked(
+            q, k, v, causal=True, window=window, logit_cap=logit_cap,
+            q_block=q_block, kv_block=min(skv, 1024), q_offset=q_offset,
+        )
+    nq = sq // q_block
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qb = q.reshape(b, nq, q_block, kheads, g, hd)
+
+    blocks = []
+    for i in range(nq):
+        qi = qb[:, i]
+        q_start = i * q_block
+        # kv span [q_start - window + 1, q_start + q_block); clamp to >= 0.
+        start = max(q_start + q_block - span, 0)
+        # lax.dynamic_slice clamps the slice into the array; the positions
+        # below keep the unclamped start, as the reference's do.
+        lo = min(start, skv - span)
+        kj, vj = k[:, lo:lo + span], v[:, lo:lo + span]
+        q_pos = torch.arange(q_block, device=dev) + q_start + q_offset
+        kv_pos = torch.arange(span, device=dev) + start + q_offset
+        s = torch.einsum("bqkgd,bskd->bkgqs", qi, kj).float() * scale
+        s = softcap(s, logit_cap)
+        allowed = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(allowed, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqs,bskd->bkgqd", p.to(qi.dtype), vj)
+        blocks.append(out.permute(0, 3, 1, 2, 4))  # [b, qb, K, g, hd]
+    return torch.cat(blocks, dim=1).reshape(b, sq, h, hd)
+
+
+def decode_attention(
+    q: torch.Tensor,            # [b, 1, H, hd] — single new query
+    k_cache: torch.Tensor,      # [b, S, K, hd]
+    v_cache: torch.Tensor,      # [b, S, K, hd]
+    cache_len: Union[int, torch.Tensor],  # scalar or [b]: number of valid positions
+    *,
+    window: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+    kv_positions: Optional[torch.Tensor] = None,  # [S] absolute positions (ring)
+) -> torch.Tensor:
+    """One-token attention over the cache; O(S) per step. ``kv_positions``
+    supports ring-buffer caches (windowed layers): slot -> absolute
+    position, negative for unwritten slots."""
+    b, s, kheads, hd = k_cache.shape
+    h = q.shape[2]
+    g = h // kheads
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qg = q.reshape(b, 1, kheads, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float() * scale
+    scores = softcap(scores, logit_cap)
+    kv_pos = kv_positions.to(dev) if kv_positions is not None else torch.arange(s, device=dev)
+    q_pos = (torch.as_tensor(cache_len, device=dev) - 1).reshape(-1, 1)  # query at cache_len - 1
+    allowed = (kv_pos[None, :] <= q_pos) & (kv_pos[None, :] >= 0)
+    if window is not None:
+        allowed &= kv_pos[None, :] > q_pos - window
+    bias = torch.zeros(allowed.shape, dtype=torch.float32, device=dev).masked_fill(
+        ~allowed, NEG_INF)  # [b or 1, S]
+    scores = scores + bias[:, None, None, None, :]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache)
+    return out.reshape(b, 1, h, hd)
+
+
+# --------------------------------------------------------------- KV cache --
+
+def init_kv_cache(
+    batch: int, max_len: int, n_kv_heads: int, head_dim: int, dtype: torch.dtype,
+    device: DeviceLike = "cuda",
+) -> Dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    shape = (batch, max_len, n_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def update_kv_cache(
+    cache: Dict[str, torch.Tensor],
+    k_new: torch.Tensor,          # [b, s_new, K, hd]
+    v_new: torch.Tensor,
+    position: Union[int, torch.Tensor],  # scalar write offset
+) -> Dict[str, torch.Tensor]:
+    """A new cache with ``k_new``/``v_new`` written at ``position`` (the
+    inputs are not changed). The offset is clamped so the update fits, as
+    ``lax.dynamic_update_slice`` clamps it."""
+    s_new, max_len = k_new.shape[1], cache["k"].shape[1]
+    start = min(max(int(position), 0), max_len - s_new)
+    out = {}
+    for name, new in (("k", k_new), ("v", v_new)):
+        t = cache[name].clone()
+        t[:, start:start + s_new] = new.to(t.dtype)
+        out[name] = t
+    return out

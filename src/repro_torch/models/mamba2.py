@@ -1,0 +1,135 @@
+"""Mamba-2 SSD (state-space duality) scans — the reference's
+``models/mamba2.py`` without the parameter and convolution code
+(``init_mamba``, ``_causal_conv`` and ``apply_mamba`` come with the model
+stack).
+
+``ssd_chunked`` splits the sequence into chunks of length Q: within a chunk
+the recurrence is evaluated in its dual quadratic form, and a loop over
+chunk states carries it between chunks. The chunk length is mathematically
+inert (any Q gives the same result up to reassociation), so chunk lengths
+are equal-FLOPs variants — the ``ssd_chunk`` autotune site.
+``ssd_reference`` is the sequential oracle, one step per token.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def _cumsum64(log_a: torch.Tensor, dim: int) -> torch.Tensor:
+    """Cumulative sum of log-decays in f64. |cum| grows about linearly with
+    the chunk (hundreds at chunk 512), and an f32 cum carries ulp(|cum|)
+    into every decay exp(cum_i - cum_j): at chunk 512 that alone reaches
+    the 3e-4 tolerance against the sequential scan. Differences are taken
+    in f64 and only then cast to f32, as the CUDA SSD kernel does."""
+    return torch.cumsum(log_a.double(), dim=dim)
+
+
+def _segsum_decay(log_a: torch.Tensor) -> torch.Tensor:
+    """L[i, j] = exp(sum_{j<t<=i} log_a_t) for i >= j, else 0.
+
+    log_a [..., Q, h] -> L [..., h, Q, Q]. Numerically: difference of
+    cumulative sums, taken in f64 before the f32 exp (see ``_cumsum64``);
+    the exp above the diagonal may overflow and is selected away, never
+    multiplied by a mask.
+    """
+    q = log_a.shape[-2]
+    cum = _cumsum64(log_a, dim=-2).movedim(-1, -2)         # [..., h, Q]
+    diff = (cum[..., :, None] - cum[..., None, :]).float()  # [..., h, Q, Q]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=log_a.device))
+    return torch.where(mask, torch.exp(diff), 0.0)
+
+
+def ssd_chunked(
+    x: torch.Tensor,       # [b, s, h, p]   (dt-scaled inputs NOT yet applied)
+    dt: torch.Tensor,      # [b, s, h]      (positive step sizes)
+    a_log: torch.Tensor,   # [h]            (A = -exp(a_log))
+    b_mat: torch.Tensor,   # [b, s, g, n]
+    c_mat: torch.Tensor,   # [b, s, g, n]
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # [b, h, p, n]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan. Returns (y [b, s, h, p], final_state [b, h, p, n])."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    hg = h // g
+    if s % chunk != 0:
+        raise ValueError(f"seq {s} % chunk {chunk} != 0")
+    nc = s // chunk
+
+    a = -torch.exp(a_log.float())                          # [h], negative
+    log_da = dt.float() * a                                # [b, s, h]
+    xbar = x.float() * dt.float()[..., None]
+
+    # chunked views
+    xc = xbar.reshape(bsz, nc, chunk, h, p)
+    dac = log_da.reshape(bsz, nc, chunk, h)
+    bc = b_mat.float().reshape(bsz, nc, chunk, g, n)
+    cc = c_mat.float().reshape(bsz, nc, chunk, g, n)
+
+    # ---- intra-chunk (dual quadratic form) ----
+    decay = _segsum_decay(dac)                             # [b, nc, h, Q, Q]
+    cb = torch.einsum("bzign,bzjgn->bzgij", cc, bc)        # [b, nc, g, Q, Q]
+    cb = cb.repeat_interleave(hg, dim=2)                   # [b, nc, h, Q, Q]
+    y_intra = torch.einsum("bzhij,bzjhp->bzihp", cb * decay, xc)
+
+    # ---- per-chunk state contribution ----
+    cum = _cumsum64(dac, dim=2)                            # [b, nc, Q, h], f64
+    total = cum[:, :, -1:, :]                              # [b, nc, 1, h]
+    decay_to_end = torch.exp((total - cum).float())        # [b, nc, Q, h]
+    # state_k = sum_j exp(sum_{j<t<=Q} log_da_t) * xbar_j ⊗ B_j
+    if g == 1:
+        s_chunk = torch.einsum("bzjh,bzjhp,bzjn->bzhpn", decay_to_end, xc, bc[:, :, :, 0, :])
+    else:
+        bfull = bc.repeat_interleave(hg, dim=3)            # [b, nc, Q, h, n]
+        s_chunk = torch.einsum("bzjh,bzjhp,bzjhn->bzhpn", decay_to_end, xc, bfull)
+
+    # ---- inter-chunk recurrence over states ----
+    chunk_decay = torch.exp(total[:, :, 0, :].float())     # [b, nc, h]
+    state = (init_state.float() if init_state is not None
+             else torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device))
+    prev = []
+    for z in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, z, :, None, None] + s_chunk[:, z]
+    prev_states = torch.stack(prev, dim=1)                 # [b, nc, h, p, n]
+
+    # ---- inter-chunk contribution ----
+    decay_from_start = torch.exp(cum.float())              # [b, nc, Q, h]
+    if g == 1:
+        y_inter = torch.einsum("bzin,bzih,bzhpn->bzihp",
+                               cc[:, :, :, 0, :], decay_from_start, prev_states)
+    else:
+        cfull = cc.repeat_interleave(hg, dim=3)            # [b, nc, Q, h, n]
+        y_inter = torch.einsum("bzihn,bzih,bzhpn->bzihp", cfull, decay_from_start, prev_states)
+
+    y = (y_intra + y_inter).reshape(bsz, s, h, p)
+    return y.to(x.dtype), state
+
+
+def ssd_reference(
+    x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+    b_mat: torch.Tensor, c_mat: torch.Tensor,
+    init_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (primal) scan oracle — one step per token."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    hg = h // g
+    a = -torch.exp(a_log.float())
+    xf, dtf = x.float(), dt.float()
+    bf, cf = b_mat.float(), c_mat.float()
+    state = (init_state.float() if init_state is not None
+             else torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device))
+    ys = []
+    for t in range(s):
+        xt, dtt = xf[:, t], dtf[:, t]                      # [b,h,p], [b,h]
+        da = torch.exp(dtt * a[None])                      # [b, h]
+        bt_h = bf[:, t].repeat_interleave(hg, dim=1)       # [b, h, n]
+        ct_h = cf[:, t].repeat_interleave(hg, dim=1)
+        state = state * da[..., None, None] + torch.einsum(
+            "bhp,bhn->bhpn", xt * dtt[..., None], bt_h)
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ct_h))
+    return torch.stack(ys, dim=1).to(x.dtype), state

@@ -204,6 +204,8 @@ def test_port_imports_with_jax_and_reference_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch.core, repro_torch.expressions, repro_torch.autotune\n"
         "import repro_torch.kernels.matmul.ops\n"
+        "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.ssd.ops\n"
+        "import repro_torch.models.attention, repro_torch.models.mamba2\n"
         "assert not [m for m, mod in sys.modules.items()"
         " if mod is not None and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "print('ok')\n"

@@ -1,0 +1,159 @@
+"""The port's flash attention (``repro_torch.kernels.flash_attention``)
+against the JAX package's, on numpy-made inputs. On the CPU the kernel's
+wrapper takes its plain version (the CUDA kernel runs only on the card,
+where ``chip_smoke.py`` holds it against the same plain version). The JAX
+Pallas kernel runs in interpret mode. Tolerances are the reference's
+(``tests/test_kernels.py``): f32 2e-3, bf16 3e-2."""
+
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention_kernel as jax_kernel,
+)
+from repro.kernels.flash_attention.ops import flash_attention as jax_ops  # noqa: E402
+from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fmod  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_plain,
+    flash_attention_ref,
+)
+
+DTYPES = [(jnp.float32, torch.float32, 2e-3), (jnp.bfloat16, torch.bfloat16, 3e-2)]
+# bh, sq, skv, d, causal, window, logit_cap, block_q, block_k
+SWEEP = [  # the cases of test_flash_kernel_sweep
+    (2, 256, 256, 64, True, None, None, 128, 128),
+    (1, 128, 128, 128, False, None, None, 64, 128),
+    (2, 128, 512, 64, True, None, None, 64, 128),    # decode-ish sq < skv
+    (1, 256, 256, 64, True, 64, None, 64, 64),       # sliding window
+    (1, 256, 256, 64, True, None, 50.0, 128, 64),    # gemma softcap
+]
+TRAPS = [  # where the TPU kernel and its oracle compute different functions
+    (1, 128, 64, 32, True, None, None, 64, 64),      # causal, sq > skv: rows that see no key
+    (1, 64, 128, 32, False, 32, None, 64, 64),       # window without causal, sq != skv
+]
+
+
+def _inputs(bh, sq, skv, d, seed, jdtype, tdtype):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((bh, sq, d), (bh, skv, d), (bh, skv, d))]
+    return ([jnp.asarray(a).astype(jdtype) for a in arrays],
+            [torch.from_numpy(a).to(tdtype) for a in arrays])
+
+
+def _close(out, expect, tol):
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(expect, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("jdtype,tdtype,tol", DTYPES)
+@pytest.mark.parametrize("bh,sq,skv,d,causal,win,cap,bq,bk", SWEEP)
+def test_oracle_parity_sweep(bh, sq, skv, d, causal, win, cap, bq, bk, jdtype, tdtype, tol):
+    (jq, jk, jv), (q, k, v) = _inputs(bh, sq, skv, d, sq + skv + d, jdtype, tdtype)
+    kw = dict(causal=causal, window=win, logit_cap=cap)
+    out = flash_attention_ref(q, k, v, **kw)
+    assert out.dtype == tdtype and tuple(out.shape) == (bh, sq, d)
+    _close(out, jax_ref(jq, jk, jv, **kw), tol)
+
+
+@pytest.mark.parametrize("jdtype,tdtype,tol", DTYPES)
+@pytest.mark.parametrize("bh,sq,skv,d,causal,win,cap,bq,bk", SWEEP + TRAPS)
+def test_plain_matches_the_tpu_kernel(bh, sq, skv, d, causal, win, cap, bq, bk, jdtype, tdtype, tol):
+    """``flash_attention_plain`` is the function the Pallas kernel computes,
+    the trap cases included."""
+    (jq, jk, jv), (q, k, v) = _inputs(bh, sq, skv, d, sq + skv + d, jdtype, tdtype)
+    kw = dict(causal=causal, window=win, logit_cap=cap)
+    expect = jax_kernel(jq, jk, jv, block_q=bq, block_k=bk, interpret=True, **kw)
+    out = flash_attention_plain(q, k, v, **kw)
+    assert out.dtype == tdtype
+    _close(out, expect, tol)
+    # the wrapper takes the plain version for CPU tensors, and launches nothing
+    before = fmod.flash_attention_kernel.launches
+    wrapped = fmod.flash_attention_kernel(q, k, v, block_q=bq, block_k=bk, **kw)
+    assert torch.equal(wrapped, out)
+    assert fmod.flash_attention_kernel.launches == before
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,causal,win,cap,bq,bk", TRAPS)
+def test_traps_the_oracle_differs_from_the_kernel(bh, sq, skv, d, causal, win, cap, bq, bk):
+    """The two reference functions really differ here (by more than 0.1):
+    the CUDA kernel is held against the kernel's function, not the oracle."""
+    _, (q, k, v) = _inputs(bh, sq, skv, d, sq + skv + d, jnp.float32, torch.float32)
+    kw = dict(causal=causal, window=win, logit_cap=cap)
+    gap = (flash_attention_plain(q, k, v, **kw) - flash_attention_ref(q, k, v, **kw)).abs()
+    assert float(gap.max()) > 0.1
+    if sq > skv:  # causal: the first sq - skv rows see no key and are exactly 0
+        assert torch.equal(flash_attention_plain(q, k, v, **kw)[:, : sq - skv],
+                           torch.zeros(bh, sq - skv, d))
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("window,cap", [(None, None), (48, 30.0)])
+def test_ops_gqa_parity(use_kernel, window, cap):
+    """Model layout [b, s, h, d] with GQA (h = 4, kv = 2), as
+    test_flash_ops_gqa_broadcast, against the JAX wrapper on the same route."""
+    b, s, h, kv, d = 2, 128, 4, 2, 32
+    rng = np.random.default_rng(1)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+    kw = dict(window=window, logit_cap=cap, block_q=64, block_k=64, use_kernel=use_kernel)
+    expect = jax_ops(*[jnp.asarray(a) for a in arrays], interpret=True, **kw)
+    out = flash_attention(*[torch.from_numpy(a) for a in arrays], **kw)
+    assert tuple(out.shape) == (b, s, h, d)
+    _close(out, expect, 2e-3)
+
+
+def test_model_layout_equals_head_flattened_layout():
+    """The kernel's two layouts are one function: [b, s, h, d] with GQA
+    equals [bh, s, d] on kv heads repeated with the mapping of jnp.repeat."""
+    b, s, h, kv, d = 2, 64, 6, 2, 32
+    q, k, v = torch.randn(b, s, h, d), torch.randn(b, s, kv, d), torch.randn(b, s, kv, d)
+    out = fmod.flash_attention_kernel(q, k, v, window=20, logit_cap=40.0)
+    for i in range(h):
+        expect = flash_attention_plain(q[:, :, i], k[:, :, i // 3], v[:, :, i // 3],
+                                       window=20, logit_cap=40.0)
+        assert torch.allclose(out[:, :, i], expect, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("block_q,block_k", [(128, 512), (64, 64), (4096, 4096)])
+def test_blocks_clamp_to_the_sequence(block_q, block_k):
+    q, k, v = torch.randn(1, 64, 32), torch.randn(1, 64, 32), torch.randn(1, 64, 32)
+    out = fmod.flash_attention_kernel(q, k, v, block_q=block_q, block_k=block_k)
+    assert torch.equal(out, flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize(
+    "q,k,block_q,block_k",
+    [
+        (torch.randn(1, 96, 32), torch.randn(1, 96, 32), 64, 64),     # 96 % 64
+        (torch.randn(1, 64, 32), torch.randn(1, 96, 32), 64, 64),     # skv % block_k
+        (torch.randn(1, 64, 16), torch.randn(1, 64, 16), 64, 64),     # head dim 16
+        (torch.randn(1, 64, 32), torch.randn(2, 64, 32), 64, 64),     # bh mismatch
+        (torch.randn(2, 64, 3, 32), torch.randn(2, 64, 2, 32), 64, 64),  # h % kv
+        (torch.randn(1, 64, 32).half(), torch.randn(1, 64, 32).half(), 64, 64),  # f16
+    ],
+)
+def test_wrapper_rejects_what_the_kernel_does_not_take(q, k, block_q, block_k):
+    with pytest.raises(ValueError):
+        fmod.flash_attention_kernel(q, k, k.clone(), block_q=block_q, block_k=block_k)
+
+
+def test_tensors_off_the_cpu_and_off_cuda_raise():
+    q = torch.empty(1, 64, 32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fmod.flash_attention_kernel(q, q, q)
+
+
+def test_kernel_source_instantiates_exactly_the_head_dims():
+    src = fmod.SOURCE.read_text()
+    dims = {int(x) for x in re.findall(r"^\s*REPRO_HEAD_DIM\((\d+)\)\s*$", src, re.M)}
+    assert dims == set(fmod.HEAD_DIMS)
+    assert "flash_attention.py:103" in src  # names the TPU kernel it replaces

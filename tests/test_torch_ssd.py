@@ -1,0 +1,204 @@
+"""The port's SSD chunk scan (``repro_torch.kernels.ssd``) and Mamba-2 scans
+(``repro_torch.models.mamba2``) against the JAX package's, on numpy-made
+inputs at the shapes of ``tests/test_kernels.py`` and
+``tests/test_models.py``. On the CPU the kernel's wrapper takes its plain
+version (the sequential scan); the JAX Pallas kernel runs in interpret mode.
+Tolerance: the reference's f32 3e-4 (2e-4 for the state-carry case)."""
+
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ssd.ops import ssd_mix as jax_ssd_mix  # noqa: E402
+from repro.kernels.ssd.ref import ssd_scan_ref as jax_scan_ref  # noqa: E402
+from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked  # noqa: E402
+from repro_torch.autotune import ssd_chunk_site  # noqa: E402
+from repro_torch.kernels.ssd import ssd as smod  # noqa: E402
+from repro_torch.kernels.ssd.ops import ssd_mix  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.models.mamba2 import _segsum_decay, ssd_chunked, ssd_reference  # noqa: E402
+
+
+def _mixer_inputs(b, s, h, p, n, g, seed, a_shift=0.0, dt_shift=0.0):
+    """x, dt = softplus(N(0,1) + dt_shift), a_log = N(0, 0.5^2) + a_shift, B, C
+    (the reference tests' distributions at shift 0), as float32 numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p))
+    dt = np.logaddexp(0.0, rng.standard_normal((b, s, h)) + dt_shift)
+    a_log = rng.standard_normal(h) * 0.5 + a_shift
+    bm = rng.standard_normal((b, s, g, n))
+    cm = rng.standard_normal((b, s, g, n))
+    return [a.astype(np.float32) for a in (x, dt, a_log, bm, cm)]
+
+
+def _pair(arrays):
+    return [jnp.asarray(a) for a in arrays], [torch.from_numpy(a) for a in arrays]
+
+
+def _close(out, expect, tol):
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(expect, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_ssd_mix_parity_sweep(chunk, use_kernel):
+    """test_ssd_kernel_sweep's shapes: both port routes against the JAX
+    kernel (interpret) and the JAX plain route."""
+    jx, tx = _pair(_mixer_inputs(2, 128, 4, 32, 16, 1, seed=chunk))
+    out = ssd_mix(*tx, chunk=chunk, use_kernel=use_kernel)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (2, 128, 4, 32)
+    _close(out, jax_ssd_mix(*jx, chunk=chunk, use_kernel=True, interpret=True), 3e-4)
+    _close(out, jax_ssd_mix(*jx, use_kernel=False), 3e-4)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_ssd_mix_groups_parity(use_kernel):
+    """test_ssd_kernel_groups: g = 2 groups broadcast to 4 heads."""
+    jx, tx = _pair(_mixer_inputs(1, 64, 4, 16, 8, 2, seed=1))
+    out = ssd_mix(*tx, chunk=32, use_kernel=use_kernel)
+    _close(out, jax_ssd_mix(*jx, chunk=32, use_kernel=True, interpret=True), 3e-4)
+    _close(out, jax_ssd_mix(*jx, use_kernel=False), 3e-4)
+
+
+def test_ssd_scan_ref_parity_with_state():
+    """The plain version on the head-flattened layout, y and final state."""
+    rng = np.random.default_rng(2)
+    bh, s, p, n = 4, 64, 16, 8
+    xbar = rng.standard_normal((bh, s, p)).astype(np.float32)
+    logda = -np.abs(rng.standard_normal((bh, s))).astype(np.float32)
+    bm = rng.standard_normal((bh, s, n)).astype(np.float32)
+    cm = rng.standard_normal((bh, s, n)).astype(np.float32)
+    init = rng.standard_normal((bh, p, n)).astype(np.float32)
+    jx, tx = _pair([xbar, logda, bm, cm, init])
+    y, st = ssd_scan_ref(*tx)
+    jy, jst = jax_scan_ref(*jx)
+    _close(y, jy, 3e-4)
+    _close(st, jst, 3e-4)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 64])
+def test_ssd_chunked_equals_sequential_and_jax(chunk):
+    """test_ssd_chunked_equals_sequential's shapes, plus the JAX function."""
+    jx, tx = _pair(_mixer_inputs(2, 64, 2, 8, 4, 1, seed=3))
+    y_ref, st_ref = ssd_reference(*tx)
+    y, st = ssd_chunked(*tx, chunk)
+    _close(y, y_ref.numpy(), 3e-4)
+    _close(st, st_ref.numpy(), 3e-4)
+    jy, jst = jax_ssd_chunked(*jx, chunk)
+    _close(y, jy, 3e-4)
+    _close(st, jst, 3e-4)
+
+
+def test_ssd_chunked_groups_equals_sequential():
+    _, tx = _pair(_mixer_inputs(1, 64, 4, 8, 4, 2, seed=4))
+    y_ref, st_ref = ssd_reference(*tx)
+    y, st = ssd_chunked(*tx, 16)
+    _close(y, y_ref.numpy(), 3e-4)
+    _close(st, st_ref.numpy(), 3e-4)
+
+
+@pytest.mark.parametrize("chunk", [256, 512])
+def test_ssd_chunked_long_chunks_hold_the_tolerance(chunk):
+    """The ssd_chunk site's longest chunks at its default widths (b 2,
+    s 2048, h 8, p 32, n 32): |cum| reaches hundreds within a chunk, and an
+    f32 cum would carry ulp(|cum|) into every decay, as far as the 3e-4
+    tolerance at chunk 512. The port takes cum and its differences in f64."""
+    _, tx = _pair(_mixer_inputs(2, 2048, 8, 32, 32, 1, seed=2))
+    y_ref, st_ref = ssd_reference(*tx)
+    y, st = ssd_chunked(*tx, chunk)
+    _close(y, y_ref.numpy(), 3e-4)
+    _close(st, st_ref.numpy(), 3e-4)
+
+
+def test_ssd_state_carry_composes():
+    """Two halves with the carried state == one full run (test_models.py:213)."""
+    _, (x, dt, a_log, bm, cm) = _pair(_mixer_inputs(1, 32, 2, 8, 4, 1, seed=5))
+    y_full, st_full = ssd_reference(x, dt, a_log, bm, cm)
+    y1, st1 = ssd_reference(x[:, :16], dt[:, :16], a_log, bm[:, :16], cm[:, :16])
+    y2, st2 = ssd_reference(x[:, 16:], dt[:, 16:], a_log, bm[:, 16:], cm[:, 16:], init_state=st1)
+    _close(torch.cat([y1, y2], dim=1), y_full.numpy(), 2e-4)
+    _close(st2, st_full.numpy(), 2e-4)
+    y2c, st2c = ssd_chunked(x[:, 16:], dt[:, 16:], a_log, bm[:, 16:], cm[:, 16:], 8,
+                            init_state=st1)
+    _close(y2c, y2.numpy(), 2e-4)
+    _close(st2c, st2.numpy(), 2e-4)
+
+
+def test_decay_overflow_above_the_diagonal_stays_finite():
+    """|A| * dt about 20 per token: cum_i - cum_j above the diagonal reaches
+    thousands and exp overflows to inf. Every route stays finite and equals
+    the JAX kernel's output."""
+    arrays = _mixer_inputs(1, 128, 2, 16, 8, 1, seed=6, a_shift=2.0, dt_shift=2.0)
+    jx, tx = _pair(arrays)
+    logda = -np.exp(arrays[2]) * arrays[1]
+    assert float(-logda.mean()) > 15.0
+    decay = _segsum_decay(torch.from_numpy(logda).reshape(1, 1, 128, 2))
+    assert bool(torch.isfinite(decay).all())
+    expect = jax_ssd_mix(*jx, chunk=128, use_kernel=True, interpret=True)
+    assert np.isfinite(np.asarray(expect)).all()
+    for out in (ssd_mix(*tx, chunk=128), ssd_mix(*tx, use_kernel=False),
+                ssd_chunked(*tx, 128)[0]):
+        assert bool(torch.isfinite(out).all())
+        _close(out, expect, 3e-4)
+
+
+def test_model_layout_equals_head_flattened_layout():
+    """The kernel's two layouts are one function (B/C groups read in place
+    equal B/C repeated to heads)."""
+    _, (x, dt, a_log, bm, cm) = _pair(_mixer_inputs(1, 64, 4, 16, 8, 2, seed=7))
+    logda = dt * -torch.exp(a_log)
+    xbar = x * dt[..., None]
+    y4 = smod.ssd_scan_kernel(xbar, logda, bm, cm, chunk=32)
+    y3 = smod.ssd_scan_kernel(*smod.heads_flat(xbar, logda, bm, cm), chunk=32)
+    assert torch.equal(y4, y3.reshape(1, 4, 64, 16).transpose(1, 2))
+
+
+def test_cpu_tensors_take_the_plain_version():
+    xbar, logda = torch.randn(2, 64, 16), -torch.rand(2, 64)
+    bm, cm = torch.randn(2, 64, 8), torch.randn(2, 64, 8)
+    before = smod.ssd_scan_kernel.launches
+    out = smod.ssd_scan_kernel(xbar, logda, bm, cm, chunk=32)
+    assert torch.equal(out, ssd_scan_ref(xbar, logda, bm, cm)[0])
+    assert smod.ssd_scan_kernel.launches == before
+
+
+@pytest.mark.parametrize(
+    "p,n,s,chunk",
+    [(24, 8, 64, 32),      # head dim 24 not instantiated
+     (16, 256, 64, 32),    # state dim above 128
+     (16, 8, 96, 64),      # seq % chunk
+     (128, 128, 8192, 8192)],  # chunk above the kernel's longest (shared memory)
+)
+def test_wrapper_rejects_what_the_kernel_does_not_take(p, n, s, chunk):
+    xbar, logda = torch.randn(1, s, p), -torch.rand(1, s)
+    bm = torch.randn(1, s, n)
+    with pytest.raises(ValueError):
+        smod.ssd_scan_kernel(xbar, logda, bm, bm.clone(), chunk=chunk)
+
+
+def test_tensors_off_the_cpu_and_off_cuda_raise():
+    xbar, logda, bm = (torch.empty(shape, device="meta") for shape in ((1, 64, 16), (1, 64), (1, 64, 8)))
+    with pytest.raises(ValueError, match="CUDA"):
+        smod.ssd_scan_kernel(xbar, logda, bm, bm)
+
+
+def test_cuda_request_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ssd_chunk_site()  # device="cuda" by default
+
+
+def test_kernel_source_instantiates_exactly_the_head_dims():
+    src = smod.SOURCE.read_text()
+    dims = {int(x) for x in re.findall(r"^\s*REPRO_HEAD_DIM\((\d+)\)\s*$", src, re.M)}
+    assert dims == set(smod.HEAD_DIMS)
+    assert "ssd.py:72" in src  # names the TPU kernel it replaces
+    assert f"kMaxN = {smod.MAX_STATE};" in src and f"kMaxChunk = {smod.MAX_CHUNK};" in src
+    assert f"kMaxP = {max(smod.HEAD_DIMS)};" in src  # the shared-memory static_assert's p
