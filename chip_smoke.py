@@ -22,13 +22,16 @@ Phases (any failure exits non-zero and prints no result):
 4. time the kernel, its plain version and ``torch.matmul`` beside the bound;
 5. the quickstart path on the four paper instances, on both GEMM routes;
 6. the ``matmul_blocks`` site through ``rank_site``;
-7. the flash-attention and SSD builds;
+7. the flash-attention and SSD builds, with ``ptxas -v``'s report of every
+   instantiation and the SASS check: every bf16 flash instantiation holds
+   HGMMA (wgmma) and UTMALDG (TMA) and spills nothing;
 8. flash attention: kernel against ``flash_attention_plain`` (f32, bf16)
    on the reference's sweep, its two traps and a decode case; the
    ``flash_attention`` path with GQA and at full width; the full-width
    comparison's power: builds of the kernel with planted faults must fail
-   it; timing beside the bound, the plain version and
-   ``scaled_dot_product_attention``;
+   it; timing beside the bound (with TFLOP/s and the share of the bound),
+   the plain version and ``scaled_dot_product_attention`` (the
+   dispatcher's backend, and the flash backend as a second yardstick);
 9. SSD: kernel against ``ssd_scan_ref`` on the reference's sweep and
    groups cases; the ``ssd_mix`` path at mamba2-1.3b's width; timing;
 10. the ``attention_impl`` and ``ssd_chunk`` sites, each variant first held
@@ -84,17 +87,24 @@ FLASH_CASES = (
 # typical |o| at s = 4096 is about 0.03, no larger than the bf16 tolerance.
 # A power of two, so q / 4 is exactly the unit-scale draw.
 FLASH_Q_SCALE = 4.0
-# Planted faults that the full-width bf16 comparison must reject: name, the
-# text of csrc/flash_attention.cu and its replacement (None: the fault is
-# made on the kernel's output), and whether the comparison must reject it.
-# p left unrounded moves each p by at most 2^-9 of itself, below the bf16
-# tolerance by design: it is recorded, not required.
+# Planted faults in the bf16 kernel (flash_bf16_kernel) that the full-width
+# bf16 comparison must reject: name, the text of csrc/flash_attention.cu (it
+# must occur there exactly once) and its replacement (None: the fault is made
+# on the kernel's output), and whether the comparison must reject it. The
+# tile faults change which tiles a consumer computes, never which it waits
+# on, so a fault cannot deadlock. l summed from the bf16-rounded p moves l by
+# at most 2^-9 of itself, below the bf16 tolerance by design: it is
+# recorded, not required.
 FLASH_FAULTS = (
-    ("last live kv tile skipped", "k0 < kv_end; k0 += kBK", "k0 + kBK < kv_end; k0 += kBK", True),
-    ("first live kv tile skipped from query row 2048 on", "int k0 = (kv_begin / kBK) * kBK;",
-     "int k0 = (kv_begin / kBK) * kBK + (row0 >= 2048 ? kBK : 0);", True),
+    ("last live kv tile skipped", "const int live_end = wr.end;",
+     "const int live_end = wr.end - 1;", True),
+    ("first live kv tile skipped from query row 2048 on", "const int live_begin = wr.begin;",
+     "const int live_begin = wr.begin + (wrow0 >= 2048 ? 1 : 0);", True),
     ("rows from 512 on written as 0", None, None, True),
-    ("p not rounded to bf16", "return __bfloat162float(__float2bfloat16(p));", "return p;", False),
+    ("O not rescaled by alpha", "o_acc[j] *= alpha[(j >> 1) & 1];", "o_acc[j] *= 1.f;", True),
+    ("l summed from the bf16-rounded p", "l[r] += p0 + p1;",
+     "l[r] += __bfloat162float(__float2bfloat16(p0)) + __bfloat162float(__float2bfloat16(p1));",
+     False),
 )
 # The ops path: name, (b, s, h, kv, d), keyword arguments.
 FLASH_PATH = (
@@ -158,6 +168,23 @@ def live_pairs(sq, skv, causal, window):
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
+def kernel_name(mangled):
+    """A kernel instantiation's short name from its mangled one:
+    '_ZN51_GLOBAL__N__<hash>_18_flash_attention_cu_<hash>17flash_bf16_kernelILi128EEEv...'
+    -> 'flash_bf16_kernel<Li128E>'. An Itanium name is a run of
+    length-prefixed names; the one followed by template arguments ('I') is
+    the kernel. Anything else comes back as it is."""
+    head = re.match(r"_ZN?", mangled)
+    pos = head.end() if head else len(mangled)
+    while (length := re.match(r"\d+", mangled[pos:])) is not None:
+        start = pos + length.end()
+        pos = start + int(length.group())
+        if mangled.startswith("I", pos):
+            args = re.match(r"I(\w*?)EEv", mangled[pos:])
+            return f"{mangled[start:pos]}<{args.group(1) if args else '?'}>"
+    return mangled
+
+
 def ptxas_report(lib_path):
     """``ptxas -v``'s register lines and its nonzero spill lines, each
     tagged with the kernel instantiation it belongs to."""
@@ -165,16 +192,25 @@ def ptxas_report(lib_path):
     used, spills, entry = [], [], "?"
     for ln in (log_path.read_text() if log_path.exists() else "").splitlines():
         if "Compiling entry function" in ln:
-            entry = ln.split("'")[1] if "'" in ln else ln.strip()
-            # '_ZN51_GLOBAL__N__<hash>_18_flash_attention_cu_<hash>12flash_kernelILi32E13__nv_bfloat16EEvPK...'
-            # -> 'flash_kernel<Li32E13__nv_bfloat16>'
-            short = re.search(r"\d+([a-z]+_kernel)I(\w*?)EEv", entry)
-            entry = f"{short.group(1)}<{short.group(2)}>" if short else entry
+            entry = kernel_name(ln.split("'")[1] if "'" in ln else ln.strip())
         elif "Used" in ln:
             used.append(f"{entry}: {ln.split(':', 1)[1].strip()}")
         elif "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln:
             spills.append(f"{entry}: {ln.strip()}")
     return used, spills
+
+
+def sass_report(lib_path):
+    """``cuobjdump -sass`` of a library: for each kernel instantiation, the
+    number of HGMMA (wgmma) and UTMALDG (TMA load) instructions."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name = kernel_name(chunk.split("\n", 1)[0].strip())
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in ("HGMMA", "UTMALDG")}
+    return counts
 
 
 def cuda_ms(torch, fn, iters, warmup=3):
@@ -282,6 +318,24 @@ def sdpa_call(torch, q, k, v):
     return call, backend
 
 
+def sdpa_flash_ms(torch, q, k, v):
+    """``scaled_dot_product_attention`` held to its flash backend, a second
+    yardstick beside the dispatcher's choice: (ms, what ran) or (None, why
+    not). The port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            call = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            call()
+            return cuda_ms(torch, call, 5), "FLASH_ATTENTION, enable_gqa=True"
+    except RuntimeError as err:
+        first = str(err).strip().splitlines()[0] if str(err).strip() else type(err).__name__
+        return None, f"FLASH_ATTENTION not available for these inputs: {first[:200]}"
+
+
 def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
     """Phase 8: flash attention against its plain version, its ops path, the
     power of the full-width comparison and the timing. Returns the phase's
@@ -332,14 +386,19 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
         f"{launches['flash_attention[ops]']}")
     if launches["flash_attention[ops]"] == 0:
         sys.exit("chip_smoke: the flash_attention path launched no flash-attention kernel")
+    by_config = Checks(torch, "the flash-attention kernel")  # the same comparisons, per config
     for (name, _, kw), dtype in itertools.product(FLASH_PATH, dtypes):
         key = str(dtype).split(".")[1]
         pkw = {a: kw[a] for a in ("window", "logit_cap") if a in kw}
-        checks.hold(key, outs[name, dtype], plain_by_head(*inputs[name, dtype], **pkw),
-                    FLASH_TOL[key], f"ops path {name} {key}")
+        ref = plain_by_head(*inputs[name, dtype], **pkw)
+        checks.hold(key, outs[name, dtype], ref, FLASH_TOL[key], f"ops path {name} {key}")
+        by_config.hold(f"{name} {key}", outs[name, dtype], ref, FLASH_TOL[key], "")
+        del ref
     del outs
     log(f"[8 flash] ops path vs plain (q at {FLASH_Q_SCALE:g}x unit scale): max_abs_err "
         f"{checks.errs}, share of tolerance used {checks.used}, failures {len(checks.failures)}")
+    log("[8 flash] share of tolerance used per config: "
+        + ", ".join(f"{k_} {x:.4g}" for k_, x in by_config.used.items()))
     checks.stop_if_failed("phase 8, ops path")
 
     power, missed = flash_power(torch, fmod, fault_libs, lambda q, k, v: flash_attention(q, k, v),
@@ -362,19 +421,26 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
                "bound_ms": bound_ms, "bound_by": bound_by,
                "ms": cuda_ms(torch, lambda: flash_attention(q, k, v, **kw), 5),
                "plain_ms": cuda_ms(torch, lambda: plain_by_head(q, k, v, **pkw), 2, warmup=1)}
+        row["tflops"] = flops / row["ms"] * 1e-9
+        row["share_of_bound"] = bound_ms / row["ms"]
         if name == "qwen3-14b":
             call, backend = sdpa_call(torch, q, k, v)
             row["library_ms"] = cuda_ms(torch, call, 5)
             row["library"] = f"scaled_dot_product_attention(is_causal=True, enable_gqa=True), {backend}"
             row["library_max_abs_diff_vs_kernel"] = float((call().float() - flash_attention(q, k, v).float()).abs().max())
+            row["sdpa_flash_ms"], row["sdpa_flash"] = sdpa_flash_ms(torch, q, k, v)
         else:
             row["library_ms"] = None
             row["library"] = "none: no single PyTorch call applies the tanh softcap"
         rows.append(row)
-        log(f"[8 time] {name} {key}: kernel {row['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        flash_ms = row.get("sdpa_flash_ms")
+        log(f"[8 time] {name} {key}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+            f"{100 * row['share_of_bound']:.1f} % of the bound), bound {bound_ms:.4f} ms ({bound_by}), "
             f"plain {row['plain_ms']:.4f} ms, library "
             + (f"{row['library_ms']:.4f} ms ({row['library']})" if row["library_ms"] is not None
-               else f"- ({row['library']})"))
+               else f"- ({row['library']})")
+            + ("" if "sdpa_flash" not in row else "; SDPA flash backend "
+               + (f"{flash_ms:.4f} ms" if flash_ms is not None else "-") + f" ({row['sdpa_flash']})"))
     head = next(r for r in rows if r["config"] == "qwen3-14b" and r["dtype"] == "bfloat16")
     kernel = {
         "name": "flash_attention", "route": "cuda",
@@ -384,11 +450,14 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
         "max_abs_err": max(checks.errs.values()),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "tolerance": FLASH_TOL, "config": "qwen3-14b", "dtype": "bfloat16", "shape": head["shape"],
+        "tflops": head["tflops"], "share_of_bound": head["share_of_bound"],
+        "sdpa_flash_ms": head.get("sdpa_flash_ms"), "tolerance": FLASH_TOL,
+        "config": "qwen3-14b", "dtype": "bfloat16", "shape": head["shape"],
         "max_abs_err_by_dtype": checks.errs,
         "launches_by_path": {"flash_attention[ops]": launches["flash_attention[ops]"]},
     }
     return {"checks": checks.n, "max_abs_err": checks.errs, "tolerance_used": checks.used,
+            "tolerance_used_by_config": by_config.used,
             "tolerance": FLASH_TOL, "q_scale_of_path": FLASH_Q_SCALE, "power": power,
             "timings": rows, "kernel": kernel}
 
@@ -739,6 +808,20 @@ def main():
         log(f"[7 build] {path.name}; {len(used)} kernels; nonzero spill lines: {len(spills)}")
         for line in used + spills:
             log(f"  ptxas: {line}")
+    # The bf16 flash kernel runs its products on wgmma and loads by TMA: each
+    # bf16 instantiation's SASS holds HGMMA and UTMALDG, and none spills.
+    sass = sass_report(later_builds["flash_attention"].result())
+    built["flash_attention"]["sass"] = sass
+    bf16 = {k_: c for k_, c in sass.items() if "bf16" in k_}
+    log("[7 sass] flash_attention: " + "; ".join(
+        f"{k_} HGMMA {c['HGMMA']} UTMALDG {c['UTMALDG']}" for k_, c in sass.items()))
+    missing = [k_ for k_, c in bf16.items() if not (c["HGMMA"] and c["UTMALDG"])]
+    if len(bf16) != len(fmod.HEAD_DIMS) or missing:
+        sys.exit(f"chip_smoke: bf16 flash instantiations {sorted(bf16)} without HGMMA and UTMALDG: "
+                 f"{missing}")
+    bf16_spills = [ln for ln in built["flash_attention"]["ptxas_spills"] if "bf16" in ln]
+    if bf16_spills:
+        sys.exit(f"chip_smoke: bf16 flash instantiations spill: {bf16_spills}")
     fault_libs = {name: future.result() for name, future in fault_builds.items()}
     builds.shutdown()
     fmod._library()

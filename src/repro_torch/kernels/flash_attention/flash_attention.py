@@ -2,11 +2,15 @@
 
 Replaces the reference's Pallas TPU kernel
 ``src/repro/kernels/flash_attention/flash_attention.py:103
-flash_attention_kernel``. The kernel (``csrc/flash_attention.cu``) runs one
-CTA per (batch * head, 64-query tile), walks only the kv tiles its queries
-can see and keeps the online-softmax state in f32 registers; its source note
-gives the bound and the design. This module builds it, binds it with
-``ctypes`` and checks everything the kernel does not take.
+flash_attention_kernel``. ``csrc/flash_attention.cu`` holds two kernels,
+chosen by dtype: in bf16 one CTA per (batch * head, 128-query tile) runs both
+products on the tensor cores (``wgmma``), with K and V brought by TMA into a
+ring of shared-memory stages that a producer warpgroup keeps filled; in f32
+one CTA per (batch * head, 64-query tile) runs them on FFMA, since f32 on
+``wgmma`` would be TF32. Both walk only the kv tiles their queries can see
+and keep the online-softmax state in f32 registers; the source note gives the
+bound and the design. This module builds the kernels, binds them with
+``ctypes`` and checks everything they do not take.
 
 Two layouts, one kernel: the reference's head-flattened ``[bh, s, d]`` and
 the model layout ``q [b, sq, h, d]``, ``k, v [b, skv, kv_heads, d]``, where
@@ -14,9 +18,10 @@ query head ``i`` reads kv head ``i // (h // kv_heads)`` (the mapping of
 ``jnp.repeat``) without a repeated copy of ``k`` and ``v``.
 
 ``block_q`` / ``block_k`` keep the reference's contract (``min(block, seq)``
-and ``ValueError`` unless they divide the sequences); the CUDA kernel's own
-tile is 64 x 64, since the reference's 128 x 512 blocks do not fit a CTA at
-``d = 128`` in f32. The tile changes only the order of the sums.
+and ``ValueError`` unless they divide the sequences); the CUDA kernels' own
+tiles are 128 x 128 (bf16) and 64 x 64 (f32), since the reference's
+128 x 512 blocks do not fit a CTA at ``d = 128``. The tile changes only the
+order of the sums.
 """
 
 from __future__ import annotations
@@ -40,6 +45,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+_TILE_BF16 = 128  # query rows of a bf16 CTA: the bf16 grid's y extent is ceil(sq / 128)
+# The C entry point's own error codes (csrc/flash_attention.cu, its note's end).
+_ERRORS = {-1: "head dim not instantiated", -2: "dtype not taken",
+           -3: "a TMA tensor map could not be encoded",
+           -4: "the driver's cuTensorMapEncodeTiled was not found"}
 
 
 def build() -> Path:
@@ -68,6 +78,32 @@ def bind(path: Path) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     return bind(build())
+
+
+def check_tma_layout(shape, strides, data_ptr: int, element_size: int) -> None:
+    """Raise ``ValueError`` unless TMA can read a ``[b, s, h, d]`` tensor of
+    this shape, element strides, address and element size: a 16-byte-aligned
+    base, ``d`` contiguous, and every other stride of an extent above 1 a
+    multiple of 16 bytes below 2^40 bytes. Pure, so the CPU tests reach it;
+    nothing is copied to make a tensor fit."""
+    if data_ptr % 16:
+        raise ValueError(f"TMA needs a 16-byte-aligned base; this tensor starts {data_ptr % 16} "
+                         f"bytes past a 16-byte boundary (a view at an offset?)")
+    if shape[-1] > 1 and strides[-1] != 1:
+        raise ValueError(f"TMA needs the head dim contiguous, got strides {tuple(strides)}")
+    for size, stride in zip(shape[:-1], strides[:-1]):
+        nbytes = stride * element_size
+        if size > 1 and (nbytes % 16 or not 0 < nbytes < 2**40):
+            raise ValueError(f"TMA needs strides that are multiples of 16 bytes below 2^40, "
+                             f"got {tuple(strides)} elements of {element_size} bytes")
+
+
+def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
+    """(b, h, s) strides of a contiguous [b, s, h, d] tensor; an extent of 1
+    takes the stride a contiguous tensor would have (torch leaves it free,
+    a TMA map does not)."""
+    canonical = [math.prod(x.shape[i + 1:]) for i in range(4)]
+    return tuple(x.stride(i) if x.shape[i] > 1 else canonical[i] for i in (0, 2, 1))
 
 
 def heads_flat(
@@ -132,12 +168,17 @@ def flash_attention_kernel(
         raise ValueError("the flash-attention kernel takes contiguous q, k, v")
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"b * h = {b * h} exceeds the grid's {_MAX_GRID_Y}")
+    if q.dtype == torch.bfloat16:
+        if -(-sq // _TILE_BF16) > _MAX_GRID_Y:
+            raise ValueError(f"sq = {sq} needs more than {_MAX_GRID_Y} query tiles")
+        for x in (q4, k4, v4):
+            check_tma_layout(x.shape, x.stride(), x.data_ptr(), x.element_size())
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     o4 = o if model_layout else o.unsqueeze(2)
     if o.numel() == 0:
         return o
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    strides = [x.stride(i) for x in (q4, k4, v4, o4) for i in (0, 2, 1)]  # b, h, s
+    strides = [st for x in (q4, k4, v4, o4) for st in _strides(x)]  # b, h, s
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention(
@@ -149,7 +190,8 @@ def flash_attention_kernel(
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash-attention kernel launch failed: error {err} for "
+        what = _ERRORS.get(err, "CUDA error")
+        raise RuntimeError(f"flash-attention kernel launch failed: error {err} ({what}) for "
                            f"q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}")
     flash_attention_kernel.launches += 1
     return o

@@ -157,3 +157,92 @@ def test_kernel_source_instantiates_exactly_the_head_dims():
     dims = {int(x) for x in re.findall(r"^\s*REPRO_HEAD_DIM\((\d+)\)\s*$", src, re.M)}
     assert dims == set(fmod.HEAD_DIMS)
     assert "flash_attention.py:103" in src  # names the TPU kernel it replaces
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports torch only inside main)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_tests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("index", range(5))
+def test_planted_faults_edit_the_source_exactly_once(index):
+    """Every planted fault of chip_smoke.py's phase 8 names a text that
+    occurs exactly once in flash_attention.cu (a rewrite that loses one
+    fails here, not on the card), and the required ones are the four the
+    power check needs."""
+    faults = _chip_smoke().FLASH_FAULTS
+    assert len(faults) == 5
+    assert [name for name, _, _, must in faults if must] == [
+        "last live kv tile skipped", "first live kv tile skipped from query row 2048 on",
+        "rows from 512 on written as 0", "O not rescaled by alpha"]
+    name, old, new, _ = faults[index]
+    if old is None:
+        assert new is None
+        return
+    src = fmod.SOURCE.read_text()
+    assert src.count(old) == 1, name
+    assert new != old and src.replace(old, new).count(new) >= 1
+
+
+def test_kernel_name_reads_the_mangled_instantiations():
+    smoke = _chip_smoke()
+
+    def n(x):
+        return f"{len(x)}{x}"
+
+    ns = n("_GLOBAL__N__8a3b2c11_18_flash_attention_cu_5e6f7a81")
+    assert smoke.kernel_name(f"_ZN{ns}{n('flash_bf16_kernel')}ILi128EEEvK14CUtensorMap_stS2_S2_"
+                             "P13__nv_bfloat16NS_6ParamsE") == "flash_bf16_kernel<Li128E>"
+    assert smoke.kernel_name(f"_ZN{ns}{n('flash_f32_kernel')}ILi32EEEvPKfS2_S2_PfNS_6ParamsE") \
+        == "flash_f32_kernel<Li32E>"
+    assert smoke.kernel_name("not_mangled") == "not_mangled"
+
+
+def test_tma_check_refuses_a_misaligned_base():
+    """A contiguous bf16 view at an odd storage offset starts 2 bytes past a
+    16-byte boundary: TMA cannot take it, and nothing copies it to fit."""
+    base = torch.zeros(8 + 2 * 64 * 4 * 32, dtype=torch.bfloat16)
+    view = base[1:-7].view(2, 64, 4, 32)
+    assert view.is_contiguous() and view.storage_offset() == 1
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fmod.check_tma_layout(view.shape, view.stride(), view.data_ptr(), view.element_size())
+    assert base.data_ptr() % 16 == 0
+    aligned = base[8:].view(2, 64, 4, 32)  # 16 bytes in
+    fmod.check_tma_layout(aligned.shape, aligned.stride(), aligned.data_ptr(), aligned.element_size())
+
+
+@pytest.mark.parametrize(
+    "shape,strides,ok",
+    [
+        ((2, 64, 4, 32), (8192, 128, 32, 1), True),    # contiguous [b, s, h, d]
+        ((1, 64, 1, 32), (7, 32, 3, 1), True),         # extents of 1: their strides are free
+        ((2, 64, 4, 32), (8192, 129, 32, 1), False),   # s stride 258 bytes
+        ((2, 64, 4, 32), (8192, 128, 33, 1), False),   # h stride 66 bytes
+        ((2, 64, 4, 32), (8192, 128, 32, 2), False),   # d not contiguous
+    ],
+)
+def test_tma_check_strides(shape, strides, ok):
+    if ok:
+        fmod.check_tma_layout(shape, strides, 1024, 2)
+    else:
+        with pytest.raises(ValueError):
+            fmod.check_tma_layout(shape, strides, 1024, 2)
+
+
+def test_strides_of_unit_extents_are_canonical():
+    """An extent of 1 may carry any stride in a contiguous torch tensor (a
+    TMA map would refuse 7 elements); the kernel gets the stride a
+    contiguous tensor would have."""
+    q = torch.zeros(3, 64, 32).unsqueeze(2)           # [b, s, 1, d]
+    assert fmod._strides(q) == (64 * 32, 32, 32)      # b, h, s
+    odd = torch.empty_strided((1, 64, 1, 32), (5, 32, 7, 1))
+    assert odd.is_contiguous()
+    assert fmod._strides(odd) == (64 * 32, 32, 32)
+    fmod.check_tma_layout(odd.shape, odd.stride(), 1024, 2)
