@@ -17,9 +17,16 @@ gemma2-27b and mamba2-1.3b, and rank the ``attention_impl`` and
 Phases (any failure exits non-zero and prints no result):
 1. record the card, toolchain and matmul precision (TF32 off);
 2. build the CUDA GEMM from ``src/repro_torch/kernels/matmul/csrc`` (the
-   flash-attention and SSD builds start beside it);
-3. hold the kernel against its plain version on the card, every tile;
-4. time the kernel, its plain version and ``torch.matmul`` beside the bound;
+   flash-attention, SSD, mma.sync-rate and planted-fault builds start
+   beside it), with the SASS check: every GEMM instantiation holds HMMA
+   (mma.sync) and LDGSTS (cp.async), touches no local memory and spills
+   nothing;
+3. hold the kernel against its plain version on the card, every tile, dtype
+   pair and both copy widths; the f32 comparison's power: builds of the
+   GEMM with planted faults must fail it at 1000^3;
+4. the card's mma.sync rate; time the kernel (f32 and bf16), its plain
+   version and ``torch.matmul`` beside the bounds (3xTF32 and FFMA for f32);
+   the wrapper's host cost per launch against ``torch.matmul``'s;
 5. the quickstart path on the four paper instances, on both GEMM routes;
 6. the ``matmul_blocks`` site through ``rank_site``;
 7. the flash-attention and SSD builds, with ``ptxas -v``'s report of every
@@ -65,8 +72,21 @@ OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 SWEEP_SHAPES = ((256, 256, 256), (300, 200, 450), (64, 512, 128), (128, 128, 1024))
 PROPERTY_SHAPES = tuple((17 * i, 23 * j, 13 * k) for i, j, k in itertools.product((1, 2, 3), repeat=3))
 TIMED_SHAPES = ((1000, 1000, 1000), (1024, 1024, 1024), (4096, 4096, 4096))
+BF16_TIMED_SHAPES = ((1000, 1000, 1000), (4096, 4096, 4096))
+HOST_LAUNCHES = 1000  # launches of a 64^3 GEMM timed on the host clock (phase 4)
 INSTANCES = ("anomaly_331", "fig3_75", "instance_A", "instance_B")
 TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
+
+# Planted faults in the GEMM that the 1000^3 f32 comparison at the 64^3 tile
+# must reject (phase 3): name, the text of csrc/gemm.cu (it must occur there
+# exactly once) and its replacement.
+GEMM_FAULTS = (
+    ("lo forced to 0 (1xTF32)", "  lo = to_tf32(x - __uint_as_float(hi));\n", "  lo = 0u;\n"),
+    ("cross term a_hi*b_lo dropped", "        mma_tf32(d, ahi, blo[j]);\n",
+     "        // a_hi*b_lo dropped\n"),
+    ("last K stage skipped", "  for (int kt = 0; kt < k_tiles; ++kt) {",
+     "  for (int kt = 0; kt < k_tiles - 1; ++kt) {"),
+)
 
 # Flash attention: the reference's tolerances (tests/test_kernels.py).
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
@@ -137,19 +157,20 @@ def nvidia_smi():
 
 def peaks(name):
     """Published dense peaks of the H100 SXM (NVIDIA data sheet, 700 W) used
-    for the bound: FP32 outside the tensor cores (the hand GEMM's FFMA rate)
-    and HBM3. Any other card raises, so a wrong bound is never picked."""
+    for the bounds: FP32 outside the tensor cores (FFMA), TF32 and bf16 on
+    them, and HBM3. Any other card raises, so a wrong bound is never picked."""
     if "H100" not in name or "HBM3" not in name:
         raise SystemExit(f"chip_smoke: no peak table for {name!r}; the bound is for an H100 SXM")
-    return {"sku": "H100 SXM", "f32_flops": 67e12, "bf16_flops": 989e12, "bytes_per_s": 3.35e12}
+    return {"sku": "H100 SXM", "f32_flops": 67e12, "tf32_flops": 494.7e12, "bf16_flops": 989e12,
+            "bytes_per_s": 3.35e12}
 
 
-def gemm_bound(m, k, n, in_bytes, out_bytes, peak):
+def gemm_bound(m, k, n, in_bytes, out_bytes, flops_per_s, peak, products=1):
     """Least time (ms) for one GEMM: each input read once, the output written
-    once, 2mkn FFMA-rate operations; returns (ms, what bounds it)."""
-    t_bytes = ((m * k + k * n) * in_bytes + m * n * out_bytes) / peak["bytes_per_s"]
-    t_ops = 2.0 * m * k * n / peak["f32_flops"]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    once, ``products`` x 2mkn operations at ``flops_per_s`` (3 TF32 products
+    for an f32 GEMM on the tensor cores); returns (ms, what bounds it)."""
+    nbytes = (m * k + k * n) * in_bytes + m * n * out_bytes
+    return bound(products * 2.0 * m * k * n, nbytes, flops_per_s, peak)
 
 
 def bound(flops, nbytes, flops_per_s, peak):
@@ -200,16 +221,20 @@ def ptxas_report(lib_path):
     return used, spills
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS", "LDL", "STL")
+
+
 def sass_report(lib_path):
     """``cuobjdump -sass`` of a library: for each kernel instantiation, the
-    number of HGMMA (wgmma) and UTMALDG (TMA load) instructions."""
+    number of HGMMA (wgmma), UTMALDG (TMA load), HMMA (mma.sync), LDGSTS
+    (cp.async) and LDL/STL (local memory: spills) instructions."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     counts = {}
     for chunk in re.split(r"\n\s*Function : ", text)[1:]:
         name = kernel_name(chunk.split("\n", 1)[0].strip())
-        counts[name] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in ("HGMMA", "UTMALDG")}
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in SASS_OPS}
     return counts
 
 
@@ -254,13 +279,13 @@ class Checks:
             sys.exit(f"chip_smoke: {self.what} disagrees with its plain version ({phase})")
 
 
-def build_fault(fmod, build_library, tmp, index, old, new):
-    """Build ``csrc/flash_attention.cu`` with ``old`` replaced by ``new``
+def build_fault(mod, build_library, tmp, index, old, new):
+    """Build a kernel module's ``SOURCE`` with ``old`` replaced by ``new``
     into ``tmp`` (outside the checkout) and return the library's path."""
-    src = fmod.SOURCE.read_text()
+    src = mod.SOURCE.read_text()
     if src.count(old) != 1:
-        raise SystemExit(f"chip_smoke: planted fault text {old!r} not found once in {fmod.SOURCE}")
-    path = Path(tmp) / f"flash_attention_fault{index}.cu"
+        raise SystemExit(f"chip_smoke: planted fault text {old!r} not found once in {mod.SOURCE}")
+    path = Path(tmp) / f"{mod.SOURCE.stem}_fault{index}.cu"
     path.write_text(src.replace(old, new))
     return build_library(path, Path(tmp))
 
@@ -298,6 +323,113 @@ def flash_power(torch, fmod, fault_libs, entry, plain, q, k, v):
     fmod.flash_attention_kernel.launches = launches
     missed = [name for name, _, _, must in FLASH_FAULTS if must and shares["path"][name] <= 1.0]
     return shares, missed
+
+
+def reset_gemm_counts(kmod):
+    kmod.matmul_kernel.launches = 0
+    kmod.matmul_kernel.launches_by_copy = {w: 0 for w in kmod.COPY_WIDTHS}
+
+
+def gemm_sass_check(kmod, lib_path, spills):
+    """Phase 2's SASS check: every GEMM instantiation (each tile, dtype pair
+    and copy width) runs its products on HMMA (mma.sync), loads by LDGSTS
+    (cp.async) and touches no local memory; ptxas reports no spill."""
+    sass = sass_report(lib_path)
+    gemm = {k_: c for k_, c in sass.items() if k_.startswith("gemm_kernel")}
+    want = len(kmod.SUPPORTED_TILES) * 4 * len(kmod.COPY_WIDTHS)
+    bad = [k_ for k_, c in gemm.items() if not (c["HMMA"] and c["LDGSTS"]) or c["LDL"] or c["STL"]]
+    span = {op: sorted(c[op] for c in gemm.values()) or [0] for op in ("HMMA", "LDGSTS")}
+    log(f"[2 sass] gemm: {len(gemm)} instantiations (want {want}); "
+        + ", ".join(f"{op} {v[0]}-{v[-1]}" for op, v in span.items())
+        + f", LDL/STL {sum(c['LDL'] + c['STL'] for c in gemm.values())}")
+    if len(gemm) != want or bad:
+        sys.exit(f"chip_smoke: GEMM instantiations without HMMA and LDGSTS, or with local memory: "
+                 f"{bad} ({len(gemm)} of {want} found)")
+    if spills:
+        sys.exit(f"chip_smoke: GEMM instantiations spill: {spills}")
+    return gemm
+
+
+def gemm_power(torch, kmod, fault_libs, a, b, ref):
+    """The power of the 1000^3 f32 comparison at the 64^3 tile: the share of
+    its tolerance that the kernel and each planted fault use. Returns the
+    shares and the faults it did not reject. The faults' launches are not
+    counted."""
+    tol = TOL["float32"]
+
+    def share():
+        out = kmod.matmul_kernel(a, b, block_m=64, block_n=64, block_k=64)
+        return float(((out - ref).abs() / (tol * (1 + ref.abs()))).max())
+
+    real_library = kmod._library
+    launches = (kmod.matmul_kernel.launches, dict(kmod.matmul_kernel.launches_by_copy))
+    shares = {"kernel": share()}
+    for name, _, _ in GEMM_FAULTS:
+        lib = kmod.bind(fault_libs[name])
+        kmod._library = lambda: lib  # noqa: E731
+        try:
+            shares[name] = share()
+        finally:
+            kmod._library = real_library
+    torch.cuda.synchronize()
+    kmod.matmul_kernel.launches, kmod.matmul_kernel.launches_by_copy = launches
+    return shares, [name for name, _, _ in GEMM_FAULTS if shares[name] <= 1.0]
+
+
+def mma_rates(torch, lib_path):
+    """The rate of mma.sync on the card (``csrc/mma_peak.cu``): TFLOP/s of
+    m16n8k8 TF32 and m16n8k16 bf16, registers only, 4 blocks of 256 threads
+    an SM. The ceiling of the GEMM's products."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(lib_path))
+    lib.repro_mma_peak.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    lib.repro_mma_peak.restype = ctypes.c_int
+    out = torch.zeros(256, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    blocks, threads, iters = 4 * torch.cuda.get_device_properties(0).multi_processor_count, 256, 4096
+    rates = {}
+    for label, tf32, depth in (("tf32", 1, 8), ("bf16", 0, 16)):
+        def call():
+            if lib.repro_mma_peak(tf32, blocks, threads, iters, out.data_ptr(), stream) != 0:
+                raise RuntimeError("mma_peak launch failed")
+        ms = cuda_ms(torch, call, 3, warmup=1)
+        flops = blocks * threads / 32 * iters * 16 * 2 * 16 * 8 * depth
+        rates[label] = flops / (ms * 1e-3)
+    return rates
+
+
+def host_cost(torch, kmod, dev):
+    """Host clock around ``HOST_LAUNCHES`` launches with one synchronize, us
+    per launch: the wrapper on a 64^3 GEMM at the 64^3 tile, its parts
+    (the output's allocation, the ctypes call with fixed arguments) and
+    ``torch.matmul`` on the same inputs."""
+    a = torch.randn(64, 64, device=dev)
+    b = torch.randn(64, 64, device=dev)
+    c = torch.empty(64, 64, device=dev)
+    lib = kmod._library()
+    args = (64, 64, 64, 0, 0, kmod.copy_bytes(a, b, c), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            64, 64, 64, 64, 64, 64, torch.cuda.current_stream().cuda_stream)
+    launches = (kmod.matmul_kernel.launches, dict(kmod.matmul_kernel.launches_by_copy))
+
+    def per_launch(fn):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_LAUNCHES):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / HOST_LAUNCHES * 1e6
+
+    out = {
+        "matmul_kernel": per_launch(lambda: kmod.matmul_kernel(a, b)),
+        "torch.empty [64, 64]": per_launch(lambda: torch.empty((64, 64), device=dev)),
+        "repro_gemm through ctypes": per_launch(lambda: lib.repro_gemm(*args)),
+        "torch.matmul": per_launch(lambda: torch.matmul(a, b)),
+    }
+    kmod.matmul_kernel.launches, kmod.matmul_kernel.launches_by_copy = launches
+    return out
 
 
 def sdpa_call(torch, q, k, v):
@@ -641,14 +773,18 @@ def main():
     log("[1 setup] " + json.dumps(setup))
 
     # ---------------------------------------------------------- 2. build --
-    # one nvcc per source, all started together: flash attention, SSD and
-    # the flash faults of phase 8 beside the GEMM
-    builds = concurrent.futures.ThreadPoolExecutor(max_workers=2 + len(FLASH_FAULTS))
+    # one nvcc per source, all started together: flash attention, SSD, the
+    # mma.sync rate probe and the planted faults of phases 3 and 8 beside
+    # the GEMM
+    builds = concurrent.futures.ThreadPoolExecutor(max_workers=3 + len(FLASH_FAULTS) + len(GEMM_FAULTS))
     t_builds = time.perf_counter()
     later_builds = {"flash_attention": builds.submit(fmod.build), "ssd": builds.submit(smod.build)}
-    fault_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_flash_faults_")
+    peak_build = builds.submit(build_library, kmod.SOURCE.parent / "mma_peak.cu", kmod.BUILD_DIR)
+    fault_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_faults_")
     fault_builds = {name: builds.submit(build_fault, fmod, build_library, fault_dir.name, i, old, new)
                     for i, (name, old, new, _) in enumerate(FLASH_FAULTS) if old is not None}
+    gemm_fault_builds = {name: builds.submit(build_fault, kmod, build_library, fault_dir.name, i, old, new)
+                         for i, (name, old, new) in enumerate(GEMM_FAULTS)}
     t0 = time.perf_counter()
     lib_path = kmod.build()
     kmod._library()
@@ -660,12 +796,20 @@ def main():
         f"nonzero spill lines: {len(spills)}")
     for line in used:
         log(f"  ptxas: {line}")
+    # Products on mma.sync (HMMA), loads by cp.async (LDGSTS), no spill.
+    details["build"]["sass"] = gemm_sass_check(kmod, lib_path, spills)
 
     # ---------------------------------------------- 3. kernel vs plain ---
     gen = torch.Generator(device=dev).manual_seed(0)
     gemm_checks = Checks(torch, "the GEMM kernel")
     compare, fail_on = gemm_checks.hold, gemm_checks.stop_if_failed
+    by_tile = Checks(torch, "the GEMM kernel")  # phase 3's comparisons, per (tile, dtype pair)
 
+    def compare_tile(tile, pair, key, out, ref, tol, what):
+        compare(key, out, ref, tol, what)
+        by_tile.hold(f"{'x'.join(map(str, tile))} {pair}", out, ref, tol, what)
+
+    reset_gemm_counts(kmod)
     for tile in kmod.SUPPORTED_TILES:
         bm, bn, bk = tile
         shapes = SWEEP_SHAPES + (PROPERTY_SHAPES if tile == (16, 16, 16) else ())
@@ -679,9 +823,10 @@ def main():
                                          out_dtype=out_dtype)
                 torch.cuda.synchronize()
                 tol = TOL[kind] if out_dtype is None else TOL["bfloat16"]
-                compare(kind if out_dtype is None else "bfloat16", out,
-                        matmul_ref(a, b, out_dtype), tol,
-                        f"tile {tile} {kind}->{out_dtype or kind} {(m, k, n)}")
+                out_kind = kind if out_dtype is None else str(out_dtype).split(".")[1]
+                compare_tile(tile, f"{kind}->{out_kind}", kind if out_dtype is None else "bfloat16",
+                             out, matmul_ref(a, b, out_dtype), tol,
+                             f"tile {tile} {kind}->{out_kind} {(m, k, n)}")
     for inst_name in INSTANCES:
         inst = get_instance(inst_name, smoke=False)
         algs = inst.algorithms()
@@ -691,37 +836,85 @@ def main():
             out = chain_matmul(alg, mats, block_m=tile[0], block_n=tile[1], block_k=tile[2])
             plain = chain_matmul(alg, mats, use_kernel=False)
             torch.cuda.synchronize()
-            compare("chain", out, plain, TOL["chain"], f"chain {inst_name} {alg.name} tile {tile}")
+            compare_tile(tile, "chain float32", "chain", out, plain, TOL["chain"],
+                         f"chain {inst_name} {alg.name} tile {tile}")
     log(f"[3 kernel vs plain] {gemm_checks.n} checks, |kernel - plain| <= tol * (1 + |plain|) "
         f"with tol {TOL}: max_abs_err {gemm_checks.errs}, failures {len(gemm_checks.failures)}")
+    log("[3 kernel vs plain] largest share of the tolerance per (tile, dtype pair): "
+        + ", ".join(f"{k_} {x:.4g}" for k_, x in by_tile.used.items()))
     fail_on("phase 3")
+    by_copy = dict(kmod.matmul_kernel.launches_by_copy)
+    log(f"[3 kernel vs plain] GEMM launches by copy width (bytes): {by_copy}")
+    if not all(by_copy.values()):
+        sys.exit(f"chip_smoke: phase 3 did not launch every copy width: {by_copy}")
+
+    # The power of the f32 comparison: builds with planted faults must fail it.
+    gemm_fault_libs = {name: future.result() for name, future in gemm_fault_builds.items()}
+    a = torch.randn(1000, 1000, generator=gen, device=dev) / math.sqrt(1000)
+    b = torch.randn(1000, 1000, generator=gen, device=dev)
+    gemm_shares, missed = gemm_power(torch, kmod, gemm_fault_libs, a, b, matmul_ref(a, b))
+    log("[3 power] 1000^3 f32, tile 64^3: share of the f32 tolerance used by "
+        + ", ".join(f"{n_}: {x:.4g}" for n_, x in gemm_shares.items()))
+    if missed:
+        sys.exit(f"chip_smoke: the 1000^3 f32 GEMM comparison does not reject {missed}")
+    details["gemm_phase3"] = {"tolerance_used_by_tile": by_tile.used, "max_abs_err_by_tile": by_tile.errs,
+                              "launches_by_copy": by_copy, "power": gemm_shares}
 
     # ------------------------------------------------------------ 4. time --
+    rates = mma_rates(torch, peak_build.result())
+    log(f"[4 mma.sync] registers only: TF32 m16n8k8 {rates['tf32'] / 1e12:.1f} TFLOP/s "
+        f"({100 * rates['tf32'] / peak['tf32_flops']:.1f} % of the {peak['tf32_flops'] / 1e12:.1f} "
+        f"data-sheet peak), bf16 m16n8k16 {rates['bf16'] / 1e12:.1f} TFLOP/s "
+        f"({100 * rates['bf16'] / peak['bf16_flops']:.1f} % of {peak['bf16_flops'] / 1e12:.0f})")
+    details["mma_sync_flops"] = rates
     timings = []
-    for m, k, n in TIMED_SHAPES:
-        a = torch.randn(m, k, generator=gen, device=dev) / math.sqrt(k)
-        b = torch.randn(k, n, generator=gen, device=dev)
+    timed = [(shape, torch.float32) for shape in TIMED_SHAPES]
+    timed += [(shape, torch.bfloat16) for shape in BF16_TIMED_SHAPES]
+    for (m, k, n), dtype in timed:
+        kind = str(dtype).split(".")[1]
+        a = (torch.randn(m, k, generator=gen, device=dev) / math.sqrt(k)).to(dtype)
+        b = torch.randn(k, n, generator=gen, device=dev).to(dtype)
         plain = matmul_ref(a, b)
         for bm, bn, bk in kmod.SUPPORTED_TILES:  # every timed tile, checked at this shape
-            compare("float32", kmod.matmul_kernel(a, b, block_m=bm, block_n=bn, block_k=bk),
-                    plain, TOL["float32"], f"timed tile {(bm, bn, bk)} {(m, k, n)}")
-        fail_on(f"phase 4, {m}x{k}x{n}")
+            compare(kind, kmod.matmul_kernel(a, b, block_m=bm, block_n=bn, block_k=bk),
+                    plain, TOL[kind], f"timed tile {(bm, bn, bk)} {kind} {(m, k, n)}")
+        fail_on(f"phase 4, {m}x{k}x{n} {kind}")
         iters = 10 if m >= 4096 else 50
-        bound_ms, bound_by = gemm_bound(m, k, n, 4, 4, peak)
+        size = a.element_size()
+        if dtype == torch.float32:  # 3xTF32 on the tensor cores; FFMA as the old roof
+            bound_ms, bound_by = gemm_bound(m, k, n, size, size, peak["tf32_flops"], peak, products=3)
+            extra = {"bound_ms_ffma": gemm_bound(m, k, n, size, size, peak["f32_flops"], peak)[0],
+                     "mma_sync_ms": gemm_bound(m, k, n, size, size, rates["tf32"], peak, products=3)[0]}
+        else:
+            bound_ms, bound_by = gemm_bound(m, k, n, size, size, peak["bf16_flops"], peak)
+            extra = {"mma_sync_ms": gemm_bound(m, k, n, size, size, rates["bf16"], peak)[0]}
         row = {
-            "shape": [m, k, n], "dtype": "float32", "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": [m, k, n], "dtype": kind, "bound_ms": bound_ms, "bound_by": bound_by, **extra,
             "library_ms": cuda_ms(torch, lambda: torch.matmul(a, b), iters),
             "plain_ms": cuda_ms(torch, lambda: matmul_ref(a, b), iters),
-            "kernel_ms": {},
+            "kernel_ms": {}, "tflops": {}, "share_of_bound": {},
         }
         for bm, bn, bk in kmod.SUPPORTED_TILES:
-            row["kernel_ms"][f"{bm}x{bn}x{bk}"] = cuda_ms(
+            key = f"{bm}x{bn}x{bk}"
+            row["kernel_ms"][key] = cuda_ms(
                 torch, lambda: kmod.matmul_kernel(a, b, block_m=bm, block_n=bn, block_k=bk), iters)
+            row["tflops"][key] = 2.0 * m * k * n / row["kernel_ms"][key] * 1e-9
+            row["share_of_bound"][key] = bound_ms / row["kernel_ms"][key]
         timings.append(row)
-        log(f"[4 time] {m}x{k}x{n} f32: bound {bound_ms:.4f} ms ({bound_by}), "
-            f"torch.matmul {row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, kernel "
-            + ", ".join(f"{t} {ms:.4f} ms" for t, ms in row["kernel_ms"].items()))
+        bounds = (f"bound {bound_ms:.4f} ms ({bound_by}, "
+                  + ("3xTF32 at 494.7 TFLOP/s; FFMA at 67: "
+                     f"{row['bound_ms_ffma']:.4f} ms" if dtype == torch.float32 else "bf16 at 989 TFLOP/s")
+                  + f"; at this card's mma.sync rate {row['mma_sync_ms']:.4f} ms)")
+        log(f"[4 time] {m}x{k}x{n} {kind}: {bounds}, torch.matmul {row['library_ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, kernel "
+            + ", ".join(f"{t} {ms:.4f} ms ({row['tflops'][t]:.1f} TFLOP/s, "
+                        f"{100 * row['share_of_bound'][t]:.1f} % of the bound)"
+                        for t, ms in row["kernel_ms"].items()))
     details["timings"] = timings
+    host = host_cost(torch, kmod, dev)
+    details["host_cost_us_per_launch"] = host
+    log(f"[4 host] us per launch over {HOST_LAUNCHES} launches of a 64^3 GEMM, one synchronize: "
+        + ", ".join(f"{k_} {v:.2f}" for k_, v in host.items()))
 
     # ------------------------------------------------- 5. quickstart path --
     default_tile = kmod.DEFAULT_TILE
@@ -729,8 +922,9 @@ def main():
                                   block_k=default_tile[2])
     launches = {}
     quickstart = {}
+    launches_by_copy = {}
     for route, gemm in (("torch_matmul", torch.matmul), ("hand_gemm", hand_gemm)):
-        kmod.matmul_kernel.launches = 0
+        reset_gemm_counts(kmod)
         for inst_name in INSTANCES:
             inst = get_instance(inst_name, smoke=False)
             algs = inst.algorithms()
@@ -763,7 +957,9 @@ def main():
                     f"mr={alg.mean_rank:.2f} RF={rf[alg.name]:.2f} "
                     f"t1={single[alg.name] * 1e3:.4f} ms r={timer.inner_repeats[alg.name]}")
         launches[f"quickstart[{route}]"] = kmod.matmul_kernel.launches
-        log(f"[5 quickstart {route}] GEMM kernel launches: {kmod.matmul_kernel.launches}")
+        launches_by_copy[f"quickstart[{route}]"] = dict(kmod.matmul_kernel.launches_by_copy)
+        log(f"[5 quickstart {route}] GEMM kernel launches: {kmod.matmul_kernel.launches} "
+            f"(by copy width: {kmod.matmul_kernel.launches_by_copy})")
     details["quickstart"] = quickstart
     if launches["quickstart[hand_gemm]"] == 0:
         sys.exit("chip_smoke: the hand-GEMM quickstart path launched no GEMM kernel")
@@ -777,9 +973,10 @@ def main():
                 f"site {site.name} {variant.name}")
     fail_on("phase 6")
     del a, b, plain
-    kmod.matmul_kernel.launches = 0
+    reset_gemm_counts(kmod)
     report = rank_site(site)
     launches["autotune[matmul_blocks]"] = kmod.matmul_kernel.launches
+    launches_by_copy["autotune[matmul_blocks]"] = dict(kmod.matmul_kernel.launches_by_copy)
     log("[6 autotune] " + report.summary().replace("\n", "\n    "))
     log(f"[6 autotune] GEMM kernel launches: {launches['autotune[matmul_blocks]']}")
     details["autotune"] = {
@@ -852,8 +1049,13 @@ def main():
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "bound_ms_3xtf32": main_row["bound_ms"],
+        "bound_ms_ffma": main_row["bound_ms_ffma"],
+        "mma_sync_ms": main_row["mma_sync_ms"],
+        "launches_by_copy": {w: sum(c[w] for c in launches_by_copy.values() if c)
+                             for w in kmod.COPY_WIDTHS},
         "tolerance": TOL, "shape": main_row["shape"], "tile": list(default_tile),
-        "launches_by_path": gemm_launches,
+        "launches_by_path": gemm_launches, "launches_by_copy_by_path": launches_by_copy,
     }
     kernels = [kernel, flash["kernel"], ssd["kernel"]]
     details["kernels"] = kernels

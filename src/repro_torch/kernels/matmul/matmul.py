@@ -3,10 +3,13 @@ compute substrate on the H100.
 
 Replaces the reference's Pallas TPU kernel
 ``src/repro/kernels/matmul/matmul.py:45 matmul_kernel``. The kernel
-(``csrc/gemm.cu``) tiles the output over CTAs, walks K in shared-memory
-steps and accumulates a register micro-tile in f32 FFMA; its source note
-gives the bound and the design. This module builds it, binds it with
-``ctypes`` and checks everything the kernel does not take.
+(``csrc/gemm.cu``) tiles the output over CTAs, feeds a ring of
+shared-memory stages with ``cp.async`` and runs its products on the tensor
+cores with ``mma.sync``: f32 inputs as 3xTF32 (each operand split into two
+TF32 halves, three products), bf16 inputs directly; its source note gives
+the bound and the design. This module builds it, binds it with ``ctypes``,
+picks its copy width (:func:`copy_bytes`) and checks everything the kernel
+does not take.
 
 Tile shapes stay parameters because ``matmul_blocks_site`` ranks them, but
 only the instantiated set :data:`SUPPORTED_TILES` exists. The reference's
@@ -36,7 +39,7 @@ from ..build import NVCC_FLAGS, build_library  # noqa: F401  (NVCC_FLAGS: the bu
 from .ref import matmul_ref
 
 #: (block_m, block_n, block_k) tiles instantiated in csrc/gemm.cu: the
-#: census tiles 16/32/64 and the 128 x 128 register-blocked tiles.
+#: census tiles 16/32/64 and the 128 x 128 tiles of eight warps.
 SUPPORTED_TILES: Tuple[Tuple[int, int, int], ...] = (
     (16, 16, 16),
     (32, 32, 32),
@@ -61,12 +64,13 @@ def build() -> Path:
     return build_library(SOURCE, BUILD_DIR)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a library built from ``csrc/gemm.cu`` and declare its C
+    function's arguments."""
+    lib = ctypes.CDLL(str(path))
     fn = lib.repro_gemm
     fn.argtypes = (
-        [ctypes.c_int] * 5
+        [ctypes.c_int] * 6
         + [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 3
         + [ctypes.c_longlong] * 3
@@ -74,6 +78,27 @@ def _library() -> ctypes.CDLL:
     )
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return bind(build())
+
+
+#: Copy widths of the kernel's ``cp.async`` loads, in bytes (both instantiated).
+COPY_WIDTHS: Tuple[int, ...] = (16, 4)
+
+
+def copy_bytes(*tensors: torch.Tensor) -> int:
+    """The kernel's copy width for these row-major matrices (A, B and C):
+    16 bytes where every base address and row stride is a multiple of 16
+    bytes, else 4. A 16-byte ``cp.async`` at an address off a 16-byte
+    boundary faults, so the width follows the layout and never a failure.
+    Pure: the CPU tests call it on CPU tensors."""
+    for t in tensors:
+        if t.data_ptr() % 16 or (t.stride(0) * t.element_size()) % 16:
+            return 4
+    return 16
 
 
 def check_tile(block_m: int, block_n: int, block_k: int) -> None:
@@ -100,7 +125,8 @@ def matmul_kernel(
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version :func:`~repro_torch.kernels.matmul.ref.matmul_ref`.
-    ``matmul_kernel.launches`` counts kernel launches.
+    ``matmul_kernel.launches`` counts kernel launches and
+    ``matmul_kernel.launches_by_copy`` the same per copy width.
     """
     check_tile(block_m, block_n, block_k)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -123,19 +149,25 @@ def matmul_kernel(
         return c
     if -(-m // block_m) > _MAX_GRID_Y:
         raise ValueError(f"m={m} needs more than {_MAX_GRID_Y} row tiles of {block_m}")
-    lib = _library()
-    with torch.cuda.device(a.device):
-        err = lib.repro_gemm(
-            block_m, block_n, block_k, _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype],
+    width = copy_bytes(a, b, c)
+    index = a.device.index
+    args = (block_m, block_n, block_k, _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype], width,
             a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
             a.stride(0), b.stride(0), c.stride(0),
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
+            torch._C._cuda_getCurrentRawStream(index))  # PyTorch's current stream there
+    if index == torch.cuda.current_device():
+        err = _library().repro_gemm(*args)
+    else:
+        with torch.cuda.device(index):
+            err = _library().repro_gemm(*args)
     if err != 0:
         raise RuntimeError(f"GEMM kernel launch failed: error {err} for tile "
-                           f"{(block_m, block_n, block_k)}, shape {(m, k, n)}")
+                           f"{(block_m, block_n, block_k)}, shape {(m, k, n)}, "
+                           f"{width}-byte copies")
     matmul_kernel.launches += 1
+    matmul_kernel.launches_by_copy[width] += 1
     return c
 
 
 matmul_kernel.launches = 0
+matmul_kernel.launches_by_copy = {width: 0 for width in COPY_WIDTHS}

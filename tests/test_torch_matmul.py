@@ -119,6 +119,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(a, b):
         matmul(a, b)
 
 
+def _tile_table(src):
+    """``csrc/gemm.cu``'s ``Tile<BM, BN, BK>`` lines: warps along M and N and
+    stages of the ring, per tile."""
+    rows = re.findall(r"struct Tile<(\d+), (\d+), (\d+)> \{ static constexpr int "
+                      r"kWarpsM = (\d+), kWarpsN = (\d+), kStages = (\d+); \};", src)
+    return {tuple(int(x) for x in r[:3]): tuple(int(x) for x in r[3:]) for r in rows}
+
+
 def test_kernel_source_instantiates_exactly_the_supported_tiles():
     src = kmod.SOURCE.read_text()
     tiles = {tuple(int(x) for x in t)
@@ -126,10 +134,21 @@ def test_kernel_source_instantiates_exactly_the_supported_tiles():
     assert tiles == set(kmod.SUPPORTED_TILES)
     assert kmod.DEFAULT_TILE in kmod.SUPPORTED_TILES
     assert "-gencode=arch=compute_90a,code=sm_90a" in kmod.NVCC_FLAGS
-    for bm, bn, bk in kmod.SUPPORTED_TILES:
-        # 16 x 16 threads own the tile; the f32 stages fit static shared memory
-        assert bm % 16 == 0 and bn % 16 == 0
-        assert 4 * (bk * (bm + 4) + bk * bn) <= 48 * 1024
+    table = _tile_table(src)
+    assert set(table) == set(kmod.SUPPORTED_TILES)
+    # the design: 1 warp at 16^3, 4 at 32^3 and 64^3, 8 at the 128 x 128 tiles
+    assert {t: wm * wn for t, (wm, wn, _) in table.items()} == {
+        (16, 16, 16): 1, (32, 32, 32): 4, (64, 64, 64): 4, (128, 128, 8): 8, (128, 128, 16): 8}
+    for (bm, bn, bk), (wm, wn, stages) in table.items():
+        # each warp owns whole 16 x 16 blocks of m16 x n8 fragments
+        assert bm % (16 * wm) == 0 and bn % (16 * wn) == 0 and bk % 8 == 0
+        assert stages >= 2
+        # the ring fits a block's 227 KB of dynamic shared memory, in both
+        # input types (the kernel's row pitches: f32 A + 4, B + 8 floats;
+        # bf16 rows an odd number of 16-byte lines)
+        f32_stage = 4 * (bm * (bk + 4) + bk * (bn + 8))
+        bf16_stage = 2 * (bm * (bk if (bk // 8) % 2 else bk + 8) + bk * (bn + 8))
+        assert stages * max(f32_stage, bf16_stage) <= 227 * 1024
 
 
 def test_chain_matmul_use_kernel_false_matches_torch_matmul():
@@ -141,3 +160,128 @@ def test_chain_matmul_use_kernel_false_matches_torch_matmul():
         for dest, lhs, rhs in alg.steps:
             env[dest] = env[lhs] @ env[rhs]
         assert torch.equal(out, env[alg.steps[-1][0]])
+
+
+# ------------------------------------------------ 3xTF32, on the CPU ----
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` (and the kernel's ``to_tf32``): to nearest, ties
+    away from zero, at 10 mantissa bits; the 13 bits below cleared."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_products(a, b):
+    """The kernel's products, summed in f64: 3xTF32 (a_lo*b_hi + a_hi*b_lo +
+    a_hi*b_hi) and the two planted faults' arithmetic, 1xTF32 (lo = 0) and
+    one cross term dropped."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+
+    def dot(x, y):
+        return x.astype(np.float64) @ y.astype(np.float64)
+
+    return {
+        "3xTF32": dot(a_lo, b_hi) + dot(a_hi, b_lo) + dot(a_hi, b_hi),
+        "1xTF32": dot(a_hi, b_hi),
+        "cross term dropped": dot(a_lo, b_hi) + dot(a_hi, b_hi),
+    }
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 256, 256), (300, 200, 450), (64, 512, 128),
+                                   (128, 128, 1024), (497, 854, 338)])
+def test_3xtf32_meets_the_f32_tolerance_and_its_faults_do_not(m, k, n):
+    """The design's premise on chip_smoke's inputs (a / sqrt(k), b unit):
+    3xTF32 is within 2e-4 * (1 + |p|) of the f32 product by far, one TF32
+    product and a dropped cross term are not (so the planted faults of
+    chip_smoke's phase 3 are visible to its f32 comparison)."""
+    rng = np.random.default_rng(m + n)
+    a = (rng.standard_normal((m, k)) / np.sqrt(k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    share = {name: float((np.abs(p - exact) / (2e-4 * (1 + np.abs(exact)))).max())
+             for name, p in _tf32_products(a, b).items()}
+    assert share["3xTF32"] < 0.01, share
+    assert share["1xTF32"] > 2 and share["cross term dropped"] > 2, share
+
+
+def test_tf32_rounding_splits_exactly():
+    """hi and lo are TF32 values (13 low bits clear), hi + lo is x to within
+    2^-22 |x|, and ties round away from zero."""
+    x = np.random.default_rng(0).standard_normal(10_000).astype(np.float32)
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert np.all(np.abs((hi.astype(np.float64) + lo) - x) <= 2.0 ** -22 * np.abs(x))
+    tie = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11)], np.float32)
+    assert list(_tf32(tie)) == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
+
+
+# ------------------------------------------------------ copy widths ----
+
+def _widths(m, k, n, dtype=torch.float32):
+    a, b = torch.empty(m, k, dtype=dtype), torch.empty(k, n, dtype=dtype)
+    c = torch.empty(m, n, dtype=dtype)
+    return kmod.copy_bytes(a, b, c), [kmod.copy_bytes(t) for t in (a, b, c)]
+
+
+@pytest.mark.parametrize("m,k,n", [(1000, 1000, 1000), (1024, 1024, 1024), (128, 128, 128),
+                                   (4096, 4096, 4096), (256, 128, 1024)])
+def test_copy_bytes_is_16_where_every_row_is_16_byte_aligned(m, k, n):
+    assert _widths(m, k, n) == (16, [16, 16, 16])
+
+
+@pytest.mark.parametrize("m,k,n,which", [
+    (497, 854, 338, [4, 4, 4]),    # anomaly_331's first product: rows of 3416, 1352 bytes
+    (497, 338, 331, [4, 4, 4]),    # ... 331 and 279 f32 wide further on
+    (497, 331, 279, [4, 4, 4]),
+    (75, 75, 75, [4, 4, 4]),       # fig3_75: rows of 300 bytes
+    (75, 8, 75, [16, 4, 4]),       # k = 8: only A's rows are aligned
+    (17, 23, 13, [4, 4, 4]),       # the property shapes 17i x 23j x 13k
+    (34, 46, 26, [4, 4, 4]),
+    (51, 69, 39, [4, 4, 4]),
+    (300, 200, 450, [16, 4, 4]),   # chip_smoke's sweep: b and c 450 wide
+])
+def test_copy_bytes_is_4_where_a_row_is_not(m, k, n, which):
+    assert _widths(m, k, n) == (4, which)
+
+
+def test_copy_bytes_reads_the_base_address_too():
+    """A contiguous view one element into its storage starts 4 bytes past
+    a 16-byte boundary: 4-byte copies, whatever its rows."""
+    storage = torch.empty(1 + 64 * 64)
+    view = storage[1:].view(64, 64)
+    assert kmod.copy_bytes(storage[:64 * 64].view(64, 64)) == 16
+    assert kmod.copy_bytes(view) == 4
+    assert kmod.copy_bytes(torch.empty(64, 64, dtype=torch.bfloat16)) == 16
+    assert kmod.copy_bytes(torch.empty(64, 60, dtype=torch.bfloat16)) == 4  # 120-byte rows
+
+
+# ------------------------------------------------- planted faults ----
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports torch only inside main)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_gemm_tests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("index", range(3))
+def test_planted_gemm_faults_edit_the_source_exactly_once(index):
+    """Every planted GEMM fault of chip_smoke.py's phase 3 names a text that
+    occurs exactly once in gemm.cu (a rewrite that loses one fails here, not
+    on the card): lo forced to 0, a cross term dropped, the last K stage
+    skipped."""
+    faults = _chip_smoke().GEMM_FAULTS
+    assert [name for name, _, _ in faults] == [
+        "lo forced to 0 (1xTF32)", "cross term a_hi*b_lo dropped", "last K stage skipped"]
+    name, old, new = faults[index]
+    src = kmod.SOURCE.read_text()
+    assert src.count(old) == 1, name
+    assert new != old and src.replace(old, new).count(new) >= 1
