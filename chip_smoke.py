@@ -38,9 +38,16 @@ Phases (any failure exits non-zero and prints no result):
    comparison's power: builds of the kernel with planted faults must fail
    it; timing beside the bound (with TFLOP/s and the share of the bound),
    the plain version and ``scaled_dot_product_attention`` (the
-   dispatcher's backend, and the flash backend as a second yardstick);
-9. SSD: kernel against ``ssd_scan_ref`` on the reference's sweep and
-   groups cases; the ``ssd_mix`` path at mamba2-1.3b's width; timing;
+   dispatcher's backend, the flash backend as a second yardstick, and for
+   f32 the memory-efficient backend on K/V repeated to the query heads);
+9. SSD: the SASS check (every instantiation that carries a product holds
+   HMMA, none touches local memory or spills); kernel against
+   ``ssd_scan_ref`` on the reference's sweep and groups cases, the overflow
+   case, a ragged chunk at the SMOKE widths and several heads a group over
+   many chunks; the ``ssd_mix`` path at mamba2-1.3b's width; the power of
+   that comparison (builds with planted faults must fail it); timing of the
+   scan and of each of its passes (queued behind a device sleep, so that the
+   host's enqueue cost stays out) beside the FFMA, 3xTF32 and byte bounds;
 10. the ``attention_impl`` and ``ssd_chunk`` sites, each variant first held
    against ``attention_reference`` / ``ssd_reference``, through ``rank_site``.
 
@@ -132,15 +139,37 @@ FLASH_PATH = (
     ("qwen3-14b", (1, 4096, 40, 8, 128), {}),
     ("gemma2-27b", (1, 8192, 32, 16, 128), dict(window=4096, logit_cap=50.0)),
 )
-# SSD: the reference's f32 tolerance; b, s, h, p, n, g, chunk.
+# SSD: the reference's f32 tolerance; b, s, h, p, n, g, chunk, a_shift,
+# dt_shift (a_log = N(0, 0.5^2) + a_shift, dt = softplus(N(0, 1) + dt_shift)).
 SSD_TOL = 3e-4
 SSD_CASES = (
-    ("sweep", 2, 128, 4, 32, 16, 1, 32),
-    ("sweep", 2, 128, 4, 32, 16, 1, 64),
-    ("sweep", 2, 128, 4, 32, 16, 1, 128),
-    ("groups", 1, 64, 4, 16, 8, 2, 32),
+    ("sweep", 2, 128, 4, 32, 16, 1, 32, 0.0, 0.0),
+    ("sweep", 2, 128, 4, 32, 16, 1, 64, 0.0, 0.0),
+    ("sweep", 2, 128, 4, 32, 16, 1, 128, 0.0, 0.0),
+    ("groups", 1, 64, 4, 16, 8, 2, 32, 0.0, 0.0),
+    # |A| dt about 20 a token: exp(cum_i - cum_j) above the diagonal overflows
+    ("overflow above the diagonal", 1, 128, 2, 16, 8, 1, 128, 2.0, 2.0),
+    ("ragged chunk, SMOKE widths", 1, 64, 8, 16, 16, 1, 8, 0.0, 0.0),
+    ("4 heads a group, 4 chunks", 1, 1024, 8, 64, 64, 2, 256, 0.0, 0.0),
 )
 MAMBA2 = (2, 4096, 64, 64, 128, 1, 256)  # mamba2-1.3b: b, s, h, p, n, g, chunk
+SSD_TILE, SSD_KT = 64, 64  # csrc/ssd.cu's kTile and kKT (a CPU test holds them equal)
+# Planted faults in the SSD kernel that the mamba2-1.3b comparison must
+# reject: name, the text of csrc/ssd.cu (it must occur there exactly once),
+# its replacement, and whether the comparison must reject it. An f32 cum
+# lands near the tolerance by design (the reason cum is f64): recorded, not
+# required.
+SSD_FAULTS = (
+    ("lo forced to 0 (1xTF32)", "  lo = to_tf32(x - __uint_as_float(hi));\n", "  lo = 0u;\n", True),
+    ("state passing without its chunk decay",
+     "    const float decay = expf(static_cast<float>(cum_end[static_cast<int64_t>(c) * p.chunk]));\n",
+     "    const float decay = 1.f;\n", True),
+    ("chunk scan reads the state after its own chunk",
+     "  const float* state_before = states + slot(p, bi, c, hi) * P * p.ns;\n",
+     "  const float* state_before = states + slot(p, bi, c + 1, hi) * P * p.ns;\n", True),
+    ("diagonal left out of L (i > j)", "      return j <= i ? sa[", "      return j < i ? sa[", True),
+    ("cum in f32", "  using Cum = double;\n", "  using Cum = float;\n", False),
+)
 
 
 def log(msg=""):
@@ -243,6 +272,24 @@ def cuda_ms(torch, fn, iters, warmup=3):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters, warmup=3):
+    """CUDA-event time per launch of ``fn`` with the launches queued behind
+    ``torch.cuda._sleep``, so that the host's enqueue cost (tens of us a
+    launch through ctypes) stays out of the window and a short kernel reads
+    its device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)  # about 1 ms at the card's clock: the host gets ahead
     start.record()
     for _ in range(iters):
         fn()
@@ -468,6 +515,28 @@ def sdpa_flash_ms(torch, q, k, v):
         return None, f"FLASH_ATTENTION not available for these inputs: {first[:200]}"
 
 
+def sdpa_efficient_ms(torch, q, k, v):
+    """``scaled_dot_product_attention`` held to its memory-efficient backend
+    on the model layout's q and on k, v repeated to q's heads before the
+    timed window (the repeat is not timed): the f32 yardstick, since the
+    dispatcher picks the math backend for f32 with ``enable_gqa``. (ms, what
+    ran) or (None, why not). The port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(rep, dim=2).transpose(1, 2) for x in (k, v))
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            call = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True)
+            call()
+            return cuda_ms(torch, call, 5), f"EFFICIENT_ATTENTION, K/V repeated to {q.shape[2]} heads"
+    except RuntimeError as err:
+        first = str(err).strip().splitlines()[0] if str(err).strip() else type(err).__name__
+        return None, f"EFFICIENT_ATTENTION not available for these inputs: {first[:200]}"
+
+
 def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
     """Phase 8: flash attention against its plain version, its ops path, the
     power of the full-width comparison and the timing. Returns the phase's
@@ -561,6 +630,8 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
             row["library"] = f"scaled_dot_product_attention(is_causal=True, enable_gqa=True), {backend}"
             row["library_max_abs_diff_vs_kernel"] = float((call().float() - flash_attention(q, k, v).float()).abs().max())
             row["sdpa_flash_ms"], row["sdpa_flash"] = sdpa_flash_ms(torch, q, k, v)
+            if key == "float32":
+                row["sdpa_efficient_ms"], row["sdpa_efficient"] = sdpa_efficient_ms(torch, q, k, v)
         else:
             row["library_ms"] = None
             row["library"] = "none: no single PyTorch call applies the tanh softcap"
@@ -572,8 +643,12 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
             + (f"{row['library_ms']:.4f} ms ({row['library']})" if row["library_ms"] is not None
                else f"- ({row['library']})")
             + ("" if "sdpa_flash" not in row else "; SDPA flash backend "
-               + (f"{flash_ms:.4f} ms" if flash_ms is not None else "-") + f" ({row['sdpa_flash']})"))
+               + (f"{flash_ms:.4f} ms" if flash_ms is not None else "-") + f" ({row['sdpa_flash']})")
+            + ("" if "sdpa_efficient" not in row else "; SDPA efficient backend "
+               + (f"{row['sdpa_efficient_ms']:.4f} ms" if row["sdpa_efficient_ms"] is not None else "-")
+               + f" ({row['sdpa_efficient']})"))
     head = next(r for r in rows if r["config"] == "qwen3-14b" and r["dtype"] == "bfloat16")
+    f32 = next(r for r in rows if r["config"] == "qwen3-14b" and r["dtype"] == "float32")
     kernel = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -584,6 +659,8 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "tflops": head["tflops"], "share_of_bound": head["share_of_bound"],
         "sdpa_flash_ms": head.get("sdpa_flash_ms"), "tolerance": FLASH_TOL,
+        "f32_ms": f32["ms"], "f32_library_ms": f32["library_ms"],
+        "f32_sdpa_efficient_ms": f32.get("sdpa_efficient_ms"),
         "config": "qwen3-14b", "dtype": "bfloat16", "shape": head["shape"],
         "max_abs_err_by_dtype": checks.errs,
         "launches_by_path": {"flash_attention[ops]": launches["flash_attention[ops]"]},
@@ -594,21 +671,92 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
             "timings": rows, "kernel": kernel}
 
 
-def phase_ssd(torch, dev, peak, smod, launches):
-    """Phase 9: the SSD kernel against its plain version, the ``ssd_mix``
-    path at mamba2-1.3b's width and its timing."""
+def ssd_sass_check(smod, lib_path, spills):
+    """Phase 9's SASS check: every SSD instantiation that carries a product
+    (scores, chunk state and chunk scan per head dim) runs it on HMMA
+    (mma.sync); no instantiation touches local memory; ptxas reports no
+    spill."""
+    sass = sass_report(lib_path)
+    products = {k_: c for k_, c in sass.items()
+                if any(part in k_ for part in ("scores", "chunk_state", "chunk_scan"))}
+    want = 1 + 2 * len(smod.HEAD_DIMS)
+    log("[9 sass] ssd: " + "; ".join(
+        f"{k_} HMMA {c['HMMA']} LDGSTS {c['LDGSTS']} LDL/STL {c['LDL'] + c['STL']}"
+        for k_, c in sass.items()))
+    missing = [k_ for k_, c in products.items() if not c["HMMA"]]
+    local = [k_ for k_, c in sass.items() if c["LDL"] or c["STL"]]
+    if len(products) != want or missing or local:
+        sys.exit(f"chip_smoke: SSD product instantiations without HMMA {missing} or with local "
+                 f"memory {local} ({len(products)} of {want} found)")
+    if spills:
+        sys.exit(f"chip_smoke: SSD instantiations spill: {spills}")
+    return sass
+
+
+def ssd_kernel_flops(b, s, h, p, n, g, chunk):
+    """The f32 multiply-adds (x 2) that csrc/ssd.cu issues, at its tiling
+    (``SSD_TILE`` rows, K steps of ``SSD_KT``): score tiles on and below the
+    diagonal once per (batch, chunk, group); the chunk state over n in the
+    warps' 32-column blocks; the chunk scan's C . state^T per row tile, and
+    its y_intra per 32-row warp band up to the band's diagonal, in slabs of
+    8 columns within the diagonal step."""
+    def up(x, m):
+        return -(-x // m) * m
+
+    tile, kt = SSD_TILE, SSD_KT
+    nc, tiles = s // chunk, -(-chunk // tile)
+    scores = b * nc * g * tiles * (tiles + 1) // 2 * 2 * tile * tile * up(n, kt)
+    state = b * nc * h * 2 * p * min(128, up(n, 32)) * up(chunk, kt)
+    inter = b * nc * h * tiles * 2 * tile * up(n, kt) * p
+    intra = 0  # columns a 32-row band takes: whole K steps, then up to its diagonal
+    for it in range(tiles):
+        jmax = min(chunk, tile * it + tile)
+        for row0 in range(tile * it, tile * it + tile, 32):
+            for j0 in range(0, min(jmax, row0 + 32), kt):
+                intra += 2 * 32 * p * min(kt, row0 + 32 - j0)
+    return float(scores + state + inter + b * nc * h * intra)
+
+
+def ssd_power(torch, smod, fault_libs, run, ref):
+    """The power of the mamba2-1.3b comparison: the share of its tolerance,
+    max |out - plain| / (tol * (1 + |plain|)), that the kernel and each
+    planted fault use. Returns the shares and the required faults that it
+    did not reject. The faults' launches are not counted."""
+    def share(out):
+        return float(((out - ref).abs() / (SSD_TOL * (1 + ref.abs()))).max())
+
+    real_library, launches = smod._library, smod.ssd_scan_kernel.launches
+    shares = {"kernel": share(run())}
+    for name, _, _, _ in SSD_FAULTS:
+        lib = smod.bind(fault_libs[name])
+        smod._library = lambda: lib  # noqa: E731
+        try:
+            shares[name] = share(run())
+        finally:
+            smod._library = real_library
+    torch.cuda.synchronize()
+    smod.ssd_scan_kernel.launches = launches
+    return shares, [name for name, _, _, must in SSD_FAULTS if must and not shares[name] > 1.0]
+
+
+def phase_ssd(torch, dev, peak, smod, launches, fault_libs, rates, built):
+    """Phase 9: the SSD library's SASS, the kernel against its plain
+    version, the ``ssd_mix`` path at mamba2-1.3b's width, the power of that
+    comparison (planted faults) and the timing of the scan and each pass."""
     from repro_torch.kernels.ssd.ops import ssd_mix
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
+    sass = ssd_sass_check(smod, ROOT / built["library"], built["ptxas_spills"])
     checks = Checks(torch, "the SSD kernel")
+    by_case = Checks(torch, "the SSD kernel")  # the same comparisons, per case
     gen = torch.Generator(device=dev).manual_seed(2)
 
-    def mixer_inputs(b, s, h, p, n, g):
-        """The reference tests' distributions: dt = softplus(N(0, 1)),
-        a_log = N(0, 0.5^2)."""
+    def mixer_inputs(b, s, h, p, n, g, a_shift=0.0, dt_shift=0.0):
+        """The reference tests' distributions: dt = softplus(N(0, 1) +
+        dt_shift), a_log = N(0, 0.5^2) + a_shift."""
         r = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
-        return (r(b, s, h, p), torch.nn.functional.softplus(r(b, s, h)), r(h) * 0.5,
-                r(b, s, g, n), r(b, s, g, n))
+        return (r(b, s, h, p), torch.nn.functional.softplus(r(b, s, h) + dt_shift),
+                r(h) * 0.5 + a_shift, r(b, s, g, n), r(b, s, g, n))
 
     def kernel_inputs(x, dt, a_log):
         return x * dt[..., None], dt * -torch.exp(a_log)  # xbar, logda
@@ -618,15 +766,18 @@ def phase_ssd(torch, dev, peak, smod, launches):
         y, _ = ssd_scan_ref(*smod.heads_flat(xbar, logda, bm, cm))
         return y.reshape(b, h, s, p).transpose(1, 2)
 
-    for label, b, s, h, p, n, g, chunk in SSD_CASES:
-        x, dt, a_log, bm, cm = mixer_inputs(b, s, h, p, n, g)
+    for label, b, s, h, p, n, g, chunk, a_shift, dt_shift in SSD_CASES:
+        x, dt, a_log, bm, cm = mixer_inputs(b, s, h, p, n, g, a_shift, dt_shift)
         xbar, logda = kernel_inputs(x, dt, a_log)
         out = smod.ssd_scan_kernel(xbar, logda, bm, cm, chunk=chunk)
         torch.cuda.synchronize()
-        checks.hold("float32", out, plain(xbar, logda, bm, cm), SSD_TOL,
-                    f"{label} {(b, s, h, p, n, g, chunk)}")
-    log(f"[9 ssd] kernel vs plain, {checks.n} checks (sweep chunks 32/64/128, groups): "
-        f"max_abs_err {checks.errs}, failures {len(checks.failures)}")
+        ref = plain(xbar, logda, bm, cm)
+        what = f"{label} {(b, s, h, p, n, g, chunk)}"
+        checks.hold("float32", out, ref, SSD_TOL, what)
+        by_case.hold(what, out, ref, SSD_TOL, what)
+    log(f"[9 ssd] kernel vs plain, {checks.n} checks: max_abs_err {checks.errs}, "
+        f"failures {len(checks.failures)}; share of tolerance used per case: "
+        + ", ".join(f"{k_} {x:.4g}" for k_, x in by_case.used.items()))
     checks.stop_if_failed("phase 9, kernel cases")
 
     b, s, h, p, n, g, chunk = MAMBA2
@@ -638,46 +789,74 @@ def phase_ssd(torch, dev, peak, smod, launches):
     log(f"[9 ssd] ssd_mix path at mamba2-1.3b {MAMBA2}: SSD kernel launches {launches['ssd[ssd_mix]']}")
     if launches["ssd[ssd_mix]"] == 0:
         sys.exit("chip_smoke: the ssd_mix path launched no SSD kernel")
-    checks.hold("float32", y, ssd_mix(x, dt, a_log, bm, cm, use_kernel=False), SSD_TOL,
-                "ssd_mix mamba2-1.3b")
+    ref = ssd_mix(x, dt, a_log, bm, cm, use_kernel=False)
+    checks.hold("float32", y, ref, SSD_TOL, "ssd_mix mamba2-1.3b")
+    by_case.hold("mamba2-1.3b", y, ref, SSD_TOL, "")
     xbar, logda = kernel_inputs(x, dt, a_log)
     # the largest cum_i - cum_j above a chunk's diagonal; exp overflows f32 above 88.72
     span = float((-logda).reshape(b, s // chunk, chunk, h)[:, :, 1:].sum(dim=2).max())
     log(f"[9 ssd] ssd_mix vs plain: max_abs_err {checks.errs}, share of tolerance used "
-        f"{checks.used}, failures {len(checks.failures)}; "
+        f"{by_case.used['mamba2-1.3b']:.4g}, failures {len(checks.failures)}; "
         f"largest exponent above the diagonal {span:.1f} (f32 exp overflows: {span > 88.72})")
     checks.stop_if_failed("phase 9, ssd_mix path")
+
+    power, missed = ssd_power(torch, smod, fault_libs,
+                              lambda: smod.ssd_scan_kernel(xbar, logda, bm, cm, chunk=chunk), ref)
+    log("[9 power] mamba2-1.3b: share of tolerance used by "
+        + ", ".join(f"{n_}: {x_:.4g}" for n_, x_ in power.items()))
+    if missed:
+        sys.exit(f"chip_smoke: the mamba2-1.3b SSD comparison does not reject {missed}")
+    del y, ref
 
     # The work this data needs: the lower triangle with its diagonal, C B^T
     # once per (batch, group, chunk), the rest per head.
     flops = b * s * (g * (chunk + 1) * n + h * ((chunk + 1) * p + 4.0 * p * n))
-    flops_kernel = b * s * h * ((chunk + 1) * (n + p) + 4.0 * p * n)  # C B^T again for every head
+    flops_kernel = ssd_kernel_flops(*MAMBA2)
+    flops_per_head = b * s * h * ((chunk + 1) * (n + p) + 4.0 * p * n)  # C B^T again for every head
     flops_ref = b * s * h * (2.0 * chunk * n + 2.0 * chunk * p + 4.0 * p * n)  # variants.py's formula
     nbytes = 4 * (2 * xbar.numel() + logda.numel() + bm.numel() + cm.numel())  # y = xbar's size
-    bound_ms, bound_by = bound(flops, nbytes, peak["f32_flops"], peak)
+    bound_ms, bound_by = bound(3 * flops, nbytes, peak["tf32_flops"], peak)  # 3xTF32
     flat = smod.heads_flat(xbar, logda, bm, cm)
+    run = smod.pass_launcher(xbar, logda, bm, cm, chunk=chunk)
+    run(smod.ALL_PASSES)  # fills the scratch that each pass then reads
+    pass_ms = {name: device_ms(torch, functools.partial(run, 1 << k), 10)
+               for k, name in enumerate(smod.PASSES)}
     row = {"config": "mamba2-1.3b", "dtype": "float32", "shape": list(MAMBA2), "flops": flops,
-           "flops_reference_formula": flops_ref, "flops_kernel_does": flops_kernel,
-           "bytes": nbytes, "bound_ms": bound_ms,
-           "bound_by": bound_by,
+           "flops_kernel_does": flops_kernel, "flops_scores_per_head": flops_per_head,
+           "flops_reference_formula": flops_ref, "bytes": nbytes,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_ffma": bound(flops, nbytes, peak["f32_flops"], peak)[0],
+           "mma_sync_ms": bound(3 * flops, nbytes, rates["tf32"], peak)[0],
+           "bytes_ms": nbytes / peak["bytes_per_s"] * 1e3,
            "ms": cuda_ms(torch, lambda: smod.ssd_scan_kernel(xbar, logda, bm, cm, chunk=chunk), 10),
+           "pass_ms": pass_ms, "kernels_per_scan": len(smod.PASSES),
            "plain_ms": cuda_ms(torch, lambda: ssd_scan_ref(*flat), 2, warmup=1),
            "library_ms": None, "library": "none: no single PyTorch call computes the SSD scan",
            "largest_exponent_above_diagonal": span}
-    log(f"[9 time] mamba2-1.3b f32: kernel {row['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-        f"{flops:.3e} flops; the kernel does {flops_kernel:.3e}, the site's formula counts "
-        f"{flops_ref:.3e}), plain {row['plain_ms']:.4f} ms, "
-        f"library - ({row['library']})")
+    row["share_of_bound"] = bound_ms / row["ms"]
+    row["kernel_tflops"] = flops_kernel / row["ms"] * 1e-9
+    log(f"[9 time] mamba2-1.3b f32: scan {row['ms']:.4f} ms ({len(smod.PASSES)} kernels, each "
+        f"queued behind a device sleep: " + ", ".join(f"{k_} {v:.4f}" for k_, v in pass_ms.items())
+        + f"; sum {sum(pass_ms.values()):.4f}); bound {bound_ms:.4f} ms ({bound_by}, 3xTF32 at "
+        f"494.7 TFLOP/s; {100 * row['share_of_bound']:.1f} % of it), FFMA at 67 "
+        f"{row['bound_ms_ffma']:.4f}, at this card's mma.sync rate {row['mma_sync_ms']:.4f}, "
+        f"bytes {row['bytes_ms']:.4f}; flops: data {flops:.4e}, kernel {flops_kernel:.4e} "
+        f"({row['kernel_tflops']:.1f} TFLOP/s), with the scores per head {flops_per_head:.4e}, "
+        f"the site's formula {flops_ref:.4e}; plain {row['plain_ms']:.4f} ms, library - ({row['library']})")
     kernel = {
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:72",
         "launches": launches["ssd[ssd_mix]"], "max_abs_err": max(checks.errs.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "tolerance": SSD_TOL, "config": "mamba2-1.3b", "dtype": "float32",
-        "shape": list(MAMBA2), "launches_by_path": {"ssd[ssd_mix]": launches["ssd[ssd_mix]"]},
+        "library_ms": None, "bound_ms_ffma": row["bound_ms_ffma"], "mma_sync_ms": row["mma_sync_ms"],
+        "bytes_ms": row["bytes_ms"], "pass_ms": pass_ms, "kernels_per_scan": len(smod.PASSES),
+        "flops": flops, "flops_kernel_does": flops_kernel, "tolerance": SSD_TOL,
+        "config": "mamba2-1.3b", "dtype": "float32", "shape": list(MAMBA2),
+        "launches_by_path": {"ssd[ssd_mix]": launches["ssd[ssd_mix]"]},
     }
     return {"checks": checks.n, "max_abs_err": checks.errs, "tolerance_used": checks.used,
-            "tolerance": SSD_TOL, "timings": [row], "kernel": kernel}
+            "tolerance_used_by_case": by_case.used, "tolerance": SSD_TOL, "power": power,
+            "sass": sass, "timings": [row], "kernel": kernel}
 
 
 def phase_sites(torch, rank_site, attention_site, ssd_chunk_site):
@@ -774,9 +953,10 @@ def main():
 
     # ---------------------------------------------------------- 2. build --
     # one nvcc per source, all started together: flash attention, SSD, the
-    # mma.sync rate probe and the planted faults of phases 3 and 8 beside
+    # mma.sync rate probe and the planted faults of phases 3, 8 and 9 beside
     # the GEMM
-    builds = concurrent.futures.ThreadPoolExecutor(max_workers=3 + len(FLASH_FAULTS) + len(GEMM_FAULTS))
+    builds = concurrent.futures.ThreadPoolExecutor(
+        max_workers=3 + len(FLASH_FAULTS) + len(GEMM_FAULTS) + len(SSD_FAULTS))
     t_builds = time.perf_counter()
     later_builds = {"flash_attention": builds.submit(fmod.build), "ssd": builds.submit(smod.build)}
     peak_build = builds.submit(build_library, kmod.SOURCE.parent / "mma_peak.cu", kmod.BUILD_DIR)
@@ -785,6 +965,8 @@ def main():
                     for i, (name, old, new, _) in enumerate(FLASH_FAULTS) if old is not None}
     gemm_fault_builds = {name: builds.submit(build_fault, kmod, build_library, fault_dir.name, i, old, new)
                          for i, (name, old, new) in enumerate(GEMM_FAULTS)}
+    ssd_fault_builds = {name: builds.submit(build_fault, smod, build_library, fault_dir.name, i, old, new)
+                        for i, (name, old, new, _) in enumerate(SSD_FAULTS)}
     t0 = time.perf_counter()
     lib_path = kmod.build()
     kmod._library()
@@ -1020,6 +1202,7 @@ def main():
     if bf16_spills:
         sys.exit(f"chip_smoke: bf16 flash instantiations spill: {bf16_spills}")
     fault_libs = {name: future.result() for name, future in fault_builds.items()}
+    ssd_fault_libs = {name: future.result() for name, future in ssd_fault_builds.items()}
     builds.shutdown()
     fmod._library()
     smod._library()
@@ -1027,9 +1210,9 @@ def main():
     details["build_attention_ssd"] = built
 
     flash = phase_flash(torch, dev, peak, fmod, fault_libs, launches)
-    fault_dir.cleanup()
     details["flash_attention"] = flash
-    ssd = phase_ssd(torch, dev, peak, smod, launches)
+    ssd = phase_ssd(torch, dev, peak, smod, launches, ssd_fault_libs, rates, built["ssd"])
+    fault_dir.cleanup()
     details["ssd"] = ssd
     details["sites"] = phase_sites(torch, rank_site, attention_site, ssd_chunk_site)
     details["launches"] = launches

@@ -2,11 +2,12 @@
 
 Replaces the reference's Pallas TPU kernel
 ``src/repro/kernels/ssd/ssd.py:72 ssd_scan_kernel``. The kernel
-(``csrc/ssd.cu``) runs one CTA per (batch, head) that walks the chunks in
-order with the ``[p, n]`` f32 state in shared memory, and evaluates each
-chunk's quadratic form in 64-row strips up to the diagonal; its source note
+(``csrc/ssd.cu``) splits the TPU's sequential chunk axis into five passes
+(cumsum, C·Bᵀ scores once per B/C group, chunk states, state passing, chunk
+scan) with the products on the tensor cores as 3xTF32; its source note
 gives the bound and the design. This module builds it, binds it with
-``ctypes`` and checks everything the kernel does not take.
+``ctypes``, allocates its scratch and checks everything the kernel does not
+take.
 
 Two layouts, one kernel: the reference's head-flattened ``xbar [bh, s, p]``,
 ``logda [bh, s]``, ``B, C [bh, s, n]``, and the model layout
@@ -36,6 +37,11 @@ MAX_STATE = 128
 #: asserts at compile time that every accepted shape fits shared memory.
 MAX_CHUNK = 4096
 
+#: The kernel's passes, in launch order (bit k of the library's ``passes``
+#: mask is ``PASSES[k]``); a scan launches all of them.
+PASSES = ("cumsum", "scores", "chunk_state", "state_passing", "chunk_scan")
+ALL_PASSES = (1 << len(PASSES)) - 1
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
@@ -46,19 +52,25 @@ def build() -> Path:
     return build_library(SOURCE, BUILD_DIR)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a library built from ``csrc/ssd.cu`` and declare its C
+    function's arguments."""
+    lib = ctypes.CDLL(str(path))
     fn = lib.repro_ssd_scan
     fn.argtypes = (
         [ctypes.c_int]
-        + [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 6
+        + [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 11
         + [ctypes.c_longlong] * 12
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return bind(build())
 
 
 def heads_flat(
@@ -124,25 +136,65 @@ def ssd_scan_kernel(
                          + ", ".join(str(x.device) for x in tensors))
     if not all(x.is_floating_point() for x in tensors):
         raise ValueError("xbar, logda, B, C must be floating point")
-    x4, l3, b4, c4 = (x.float().contiguous() for x in tensors)
-    if not model_layout:  # [bh, s, *] is the case h = 1
-        x4, l3, b4, c4 = x4.unsqueeze(2), l3.unsqueeze(2), b4.unsqueeze(2), c4.unsqueeze(2)
-    y4 = torch.empty(x4.shape, dtype=torch.float32, device=xbar.device)
-    if y4.numel() == 0:
-        return y4.reshape(xbar.shape).to(xbar.dtype)
-    strides = [t.stride(i) for t in (x4, l3, b4, y4) for i in (0, 2, 1)]  # b, h|g, s
-    lib = _library()
-    with torch.cuda.device(xbar.device):
-        err = lib.repro_ssd_scan(
-            p, x4.data_ptr(), l3.data_ptr(), b4.data_ptr(), c4.data_ptr(), y4.data_ptr(),
-            b, h, h // g, s, chunk, n, *strides,
-            torch.cuda.current_stream(xbar.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"SSD kernel launch failed: error {err} for xbar "
-                           f"{tuple(xbar.shape)}, n {n}, chunk {chunk}")
+    launch = _launcher(xbar, tensors, model_layout, chunk)
+    if launch.y.numel() == 0:
+        return launch.y.reshape(xbar.shape).to(xbar.dtype)
+    launch(ALL_PASSES)
     ssd_scan_kernel.launches += 1
-    return y4.reshape(xbar.shape).to(xbar.dtype)
+    return launch.y.reshape(xbar.shape).to(xbar.dtype)
+
+
+class _Launch:
+    """One scan's f32 inputs in the model layout, its output and scratch on
+    the card, and the library call that launches any subset of the passes
+    on them (all of them for a scan; one at a time when a harness times the
+    passes)."""
+
+    def __init__(self, x4, l3, b4, c4, chunk):
+        b, s, h, p = x4.shape
+        g, n = b4.shape[2], b4.shape[3]
+        nc = s // chunk
+        ns, qp = -(-n // 4) * 4, -(-chunk // 4) * 4  # scratch pitches, multiples of 4
+        dev = x4.device
+        self.y = torch.empty(x4.shape, dtype=torch.float32, device=dev)
+        self.cum = torch.empty((b, h, s), dtype=torch.float64, device=dev)
+        self.scores = torch.empty((b, nc, g, chunk, qp), dtype=torch.float32, device=dev)
+        self.states = torch.empty((b, nc + 1, h, p, ns), dtype=torch.float32, device=dev)
+        self.inputs = (x4, l3, b4, c4)  # alive while the library reads them
+        self.what = f"xbar {tuple(x4.shape)}, n {n}, chunk {chunk}"
+        vec_x = x4.data_ptr() % 16 == 0
+        vec_bc = n % 4 == 0 and b4.data_ptr() % 16 == 0 and c4.data_ptr() % 16 == 0
+        self.args = (
+            p, x4.data_ptr(), l3.data_ptr(), b4.data_ptr(), c4.data_ptr(), self.y.data_ptr(),
+            self.cum.data_ptr(), self.scores.data_ptr(), self.states.data_ptr(),
+            b, h, h // g, s, chunk, n, ns, qp, int(vec_x), int(vec_bc),
+        )
+        self.strides = [t.stride(i) for t in (x4, l3, b4, self.y) for i in (0, 2, 1)]  # b, h|g, s
+
+    def __call__(self, passes: int) -> None:
+        dev = self.y.device
+        with torch.cuda.device(dev):
+            err = _library().repro_ssd_scan(*self.args, passes, *self.strides,
+                                            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"SSD kernel launch failed: error {err} for {self.what}")
+
+
+def _launcher(xbar, tensors, model_layout: bool, chunk: int) -> _Launch:
+    """The f32 model-layout views of the inputs ([bh, s, *] is the case
+    h = 1) with their output and scratch allocated."""
+    x4, l3, b4, c4 = (x.float().contiguous() for x in tensors)
+    if not model_layout:
+        x4, l3, b4, c4 = x4.unsqueeze(2), l3.unsqueeze(2), b4.unsqueeze(2), c4.unsqueeze(2)
+    return _Launch(x4, l3, b4, c4, chunk)
+
+
+def pass_launcher(xbar, logda, b_mat, c_mat, *, chunk: int = 256) -> _Launch:
+    """A launcher of the passes on these CUDA inputs in the model layout,
+    for timing each pass on its own: ``run(ALL_PASSES)`` fills the scratch
+    and ``y``, then ``run(1 << k)`` repeats pass ``PASSES[k]`` on it. Counts
+    no launch; the path goes through :func:`ssd_scan_kernel`."""
+    return _launcher(xbar, (xbar, logda, b_mat, c_mat), True, min(chunk, xbar.shape[1]))
 
 
 ssd_scan_kernel.launches = 0

@@ -202,3 +202,123 @@ def test_kernel_source_instantiates_exactly_the_head_dims():
     assert "ssd.py:72" in src  # names the TPU kernel it replaces
     assert f"kMaxN = {smod.MAX_STATE};" in src and f"kMaxChunk = {smod.MAX_CHUNK};" in src
     assert f"kMaxP = {max(smod.HEAD_DIMS)};" in src  # the shared-memory static_assert's p
+
+
+# ------------------------------------- the kernel's split and its faults ----
+
+def _tf32(x):
+    """cvt.rna.tf32.f32's rounding as csrc/ssd.cu writes it out: add 2^12 to
+    the bits and clear the 13 below the 10-bit mantissa."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _products(a, b, terms):
+    """a @ b in f32 with each operand split into hi = rna(x), lo = rna(x - hi):
+    3 terms are the kernel's a_lo b_hi + a_hi b_lo + a_hi b_hi, 1 term the
+    single TF32 product."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if terms == 1:
+        return a_hi @ b_hi
+    return a_hi @ b_hi + a_hi @ _tf32(b - b_hi) + _tf32(a - a_hi) @ b_hi
+
+
+def _split_scan(xbar, logda, bm, cm, chunk, terms):
+    """csrc/ssd.cu's passes for one head, written in torch: cum in f64, the
+    scores C B^T, the chunk states (a), their passing (b) and the chunk scan
+    (c), every product as `terms` TF32 products and every exp in f32 of an
+    f64 exponent."""
+    s, p = xbar.shape
+    y = torch.empty_like(xbar)
+    state = torch.zeros(p, bm.shape[1])
+    for c0 in range(0, s, chunk):
+        x, b, c = xbar[c0:c0 + chunk], bm[c0:c0 + chunk], cm[c0:c0 + chunk]
+        cum = torch.cumsum(logda[c0:c0 + chunk].double(), 0)
+        diff = cum[:, None] - cum[None, :]
+        lower = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+        # exp kept only where i >= j (above the diagonal it may be inf)
+        decay = torch.where(lower, torch.exp(diff.float()), torch.zeros(()))
+        scores = _products(c, b.T, terms)
+        y_inter = torch.exp(cum.float())[:, None] * _products(c, state.T, terms)
+        y[c0:c0 + chunk] = y_inter + _products(scores * decay, x, terms)
+        w = torch.exp((cum[-1] - cum).float())
+        s_chunk = _products((x * w[:, None]).T.contiguous(), b, terms)
+        state = torch.exp(cum[-1].float()) * state + s_chunk
+    return y
+
+
+def test_split_algebra_holds_the_tolerance_only_as_3xtf32():
+    """Passes (a)-(c) with their products as the tensor cores take them, at
+    b 1, s 1024, h 4, p 64, n 128, chunk 256 (seed 2), against an f64
+    sequential scan: 3xTF32 uses under 0.2 of 3e-4 * (1 + |y|), one TF32
+    product at least 10 times all of it (the planted fault 'lo forced to 0'
+    of chip_smoke.py)."""
+    arrays = _mixer_inputs(1, 1024, 4, 64, 128, 1, seed=2)
+    x, dt, a_log, bm, cm = (torch.from_numpy(a) for a in arrays)
+    xbar, logda = x * dt[..., None], dt * -torch.exp(a_log)
+    shares = {1: 0.0, 3: 0.0}
+    for head in range(4):
+        xs, ls, bs, cs = xbar[0, :, head], logda[0, :, head], bm[0, :, 0], cm[0, :, 0]
+        state = torch.zeros(64, 128, dtype=torch.float64)
+        ref = torch.empty(1024, 64, dtype=torch.float64)
+        for t in range(1024):
+            state = state * torch.exp(ls[t].double()) + xs[t].double()[:, None] * bs[t].double()
+            ref[t] = state @ cs[t].double()
+        for terms in shares:
+            out = _split_scan(xs, ls, bs, cs, 256, terms).double()
+            share = float(((out - ref).abs() / (3e-4 * (1 + ref.abs()))).max())
+            shares[terms] = max(shares[terms], share)
+    assert shares[3] < 0.2, shares
+    assert shares[1] > 10.0, shares
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports torch only inside main)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_ssd_tests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("index", range(5))
+def test_planted_ssd_faults_edit_the_source_exactly_once(index):
+    """Every planted SSD fault of chip_smoke.py's phase 9 names a text that
+    occurs exactly once in ssd.cu (a rewrite that loses one fails here, not
+    on the card), and the required ones are the four the power check needs."""
+    faults = _chip_smoke().SSD_FAULTS
+    assert [name for name, _, _, must in faults if must] == [
+        "lo forced to 0 (1xTF32)", "state passing without its chunk decay",
+        "chunk scan reads the state after its own chunk", "diagonal left out of L (i > j)"]
+    name, old, new, _ = faults[index]
+    src = smod.SOURCE.read_text()
+    assert src.count(old) == 1, name
+    assert new != old and src.replace(old, new).count(new) >= 1
+
+
+def test_pass_bits_follow_the_source():
+    """Bit k of the library's `passes` mask launches PASSES[k] (the per-pass
+    timing of chip_smoke.py relies on it)."""
+    src = smod.SOURCE.read_text()
+    launched = re.findall(r"if \(passes & (\d+)\) \{.*?ssd_(\w+?)_kernel", src, re.S)
+    assert [(int(bit), name) for bit, name in launched] == [
+        (1 << k, name) for k, name in enumerate(smod.PASSES)]
+    assert smod.ALL_PASSES == 31
+
+
+def test_kernel_flops_are_the_datas_not_per_head_scores():
+    """C B^T once per (batch, chunk, group): the flops the kernel issues at
+    mamba2-1.3b (its tiling, chip_smoke.ssd_kernel_flops) lie within 10 % of
+    the data's 2.61e10 (the diagonal blocks are computed whole), far from
+    the 4.31e10 of scores per head."""
+    smoke = _chip_smoke()
+    src = smod.SOURCE.read_text()
+    assert f"kTile = {smoke.SSD_TILE};" in src and f"kKT = {smoke.SSD_KT};" in src
+    b, s, h, p, n, g, chunk = smoke.MAMBA2
+    data = b * s * (g * (chunk + 1) * n + h * ((chunk + 1) * p + 4.0 * p * n))
+    per_head_scores = b * s * h * ((chunk + 1) * (n + p) + 4.0 * p * n)
+    kernel = smoke.ssd_kernel_flops(*smoke.MAMBA2)
+    assert abs(data - 2.607e10) < 0.01e10 and abs(per_head_scores - 4.305e10) < 0.01e10
+    assert data <= kernel < 1.1 * data
