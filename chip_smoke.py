@@ -23,31 +23,37 @@ Phases (any failure exits non-zero and prints no result):
    nothing;
 3. hold the kernel against its plain version on the card, every tile, dtype
    pair and both copy widths; the f32 comparison's power: builds of the
-   GEMM with planted faults must fail it at 1000^3;
+   GEMM with planted faults must fail it at 1000^3; a NaN made on the card
+   in A must give the plain version's NaN positions at every tile;
 4. the card's mma.sync rate; time the kernel (f32 and bf16), its plain
    version and ``torch.matmul`` beside the bounds (3xTF32 and FFMA for f32);
+   the cost of the TF32 split's NaN guard (a build without it, in turns);
    the wrapper's host cost per launch against ``torch.matmul``'s;
 5. the quickstart path on the four paper instances, on both GEMM routes;
 6. the ``matmul_blocks`` site through ``rank_site``;
 7. the flash-attention and SSD builds, with ``ptxas -v``'s report of every
    instantiation and the SASS check: every bf16 flash instantiation holds
-   HGMMA (wgmma) and UTMALDG (TMA) and spills nothing;
+   HGMMA (wgmma) and UTMALDG (TMA) and spills nothing; every f32 one holds
+   HMMA (mma.sync) and LDGSTS (cp.async), touches no local memory and
+   spills nothing;
 8. flash attention: kernel against ``flash_attention_plain`` (f32, bf16)
-   on the reference's sweep, its two traps and a decode case; the
-   ``flash_attention`` path with GQA and at full width; the full-width
-   comparison's power: builds of the kernel with planted faults must fail
-   it; timing beside the bound (with TFLOP/s and the share of the bound),
+   on the reference's sweep, its two traps, a decode case and an f32 case
+   with a NaN made on the card in q; the ``flash_attention`` path with GQA
+   and at full width; the full-width comparisons' power (bf16 and f32):
+   builds of the kernel with planted faults must fail them; timing beside
+   the bound (3xTF32 and FFMA for f32; with TFLOP/s and the share of it),
    the plain version and ``scaled_dot_product_attention`` (the
    dispatcher's backend, the flash backend as a second yardstick, and for
    f32 the memory-efficient backend on K/V repeated to the query heads);
 9. SSD: the SASS check (every instantiation that carries a product holds
    HMMA, none touches local memory or spills); kernel against
    ``ssd_scan_ref`` on the reference's sweep and groups cases, the overflow
-   case, a ragged chunk at the SMOKE widths and several heads a group over
-   many chunks; the ``ssd_mix`` path at mamba2-1.3b's width; the power of
-   that comparison (builds with planted faults must fail it); timing of the
-   scan and of each of its passes (queued behind a device sleep, so that the
-   host's enqueue cost stays out) beside the FFMA, 3xTF32 and byte bounds;
+   case, a ragged chunk at the SMOKE widths, several heads a group over
+   many chunks and a NaN made on the card in C; the ``ssd_mix`` path at
+   mamba2-1.3b's width; the power of that comparison (builds with planted
+   faults must fail it); timing of the scan and of each of its passes
+   (queued behind a device sleep, so that the host's enqueue cost stays
+   out) beside the FFMA, 3xTF32 and byte bounds, and the NaN guard's cost;
 10. the ``attention_impl`` and ``ssd_chunk`` sites, each variant first held
    against ``attention_reference`` / ``ssd_reference``, through ``rank_site``.
 
@@ -88,7 +94,7 @@ TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
 # must reject (phase 3): name, the text of csrc/gemm.cu (it must occur there
 # exactly once) and its replacement.
 GEMM_FAULTS = (
-    ("lo forced to 0 (1xTF32)", "  lo = to_tf32(x - __uint_as_float(hi));\n", "  lo = 0u;\n"),
+    ("lo forced to 0 (1xTF32)", "  lo = round_tf32(x - __uint_as_float(hi));\n", "  lo = 0u;\n"),
     ("cross term a_hi*b_lo dropped", "        mma_tf32(d, ahi, blo[j]);\n",
      "        // a_hi*b_lo dropped\n"),
     ("last K stage skipped", "  for (int kt = 0; kt < k_tiles; ++kt) {",
@@ -133,6 +139,23 @@ FLASH_FAULTS = (
      "l[r] += __bfloat162float(__float2bfloat16(p0)) + __bfloat162float(__float2bfloat16(p1));",
      False),
 )
+# Planted faults in the f32 kernel (flash_f32_kernel) that the full-width f32
+# comparison at qwen3-14b must reject: name, the text of
+# csrc/flash_attention.cu (it must occur there exactly once), its
+# replacement, and whether the comparison must reject it. A CPU emulation of
+# causal attention at d 128 with q at 4x puts P V at 1xTF32 near 0.3-0.5 of
+# the f32 tolerance: recorded, not required (both products stay 3xTF32).
+FLASH_F32_FAULTS = (
+    ("Q K^T at 1xTF32", "        mma_tf32(s[n], qlo, khi);\n        mma_tf32(s[n], qhi, klo);\n", "", True),
+    ("last live kv tile skipped", "const int warp_end = own.end;", "const int warp_end = own.end - 1;", True),
+    ("O not rescaled by alpha", "o_acc[j][e] *= alpha[e >> 1];", "o_acc[j][e] *= 1.f;", True),
+    ("P V at 1xTF32", "        mma_tf32(d, plo[n], vhi);\n        mma_tf32(d, phi[n], vlo);\n", "", False),
+)
+# The NaN guard of the 3xTF32 split in gemm.cu and ssd.cu (to_tf32): the
+# text that builds without it delete (one occurrence in each). Phases 3 and 9
+# time both builds in turns and show what the guard changes for a NaN made on
+# the card.
+TF32_GUARD = "  if (!(fabsf(x) < __uint_as_float(0x7f800000u))) return bits;  // inf or NaN\n"
 # The ops path: name, (b, s, h, kv, d), keyword arguments.
 FLASH_PATH = (
     ("gqa", (2, 128, 4, 2, 32), dict(block_q=64, block_k=64)),
@@ -160,7 +183,7 @@ SSD_TILE, SSD_KT = 64, 64  # csrc/ssd.cu's kTile and kKT (a CPU test holds them 
 # lands near the tolerance by design (the reason cum is f64): recorded, not
 # required.
 SSD_FAULTS = (
-    ("lo forced to 0 (1xTF32)", "  lo = to_tf32(x - __uint_as_float(hi));\n", "  lo = 0u;\n", True),
+    ("lo forced to 0 (1xTF32)", "  lo = round_tf32(x - __uint_as_float(hi));\n", "  lo = 0u;\n", True),
     ("state passing without its chunk decay",
      "    const float decay = expf(static_cast<float>(cum_end[static_cast<int64_t>(c) * p.chunk]));\n",
      "    const float decay = 1.f;\n", True),
@@ -319,6 +342,19 @@ class Checks:
         if not bool((diff <= allowed).all()):
             self.failures.append(f"{what}: max_abs_err {err:.3e} > tol {tol}")
 
+    def hold_nans(self, key, out, ref, tol, what):
+        """A case with a NaN in its inputs: the kernel's NaNs must lie exactly
+        where the plain version's do, and every other element must agree as
+        ``hold`` asks."""
+        torch = self.torch
+        if not torch.equal(out.isnan(), ref.isnan()):
+            self.n += 1
+            self.failures.append(f"{what}: NaN at {int(out.isnan().sum())} elements, the plain version "
+                                 f"at {int(ref.isnan().sum())}, positions differ")
+            return
+        keep = ~ref.isnan()
+        self.hold(key, out[keep], ref[keep], tol, what)
+
     def stop_if_failed(self, phase):
         if self.failures:
             for f in self.failures[:20]:
@@ -337,38 +373,77 @@ def build_fault(mod, build_library, tmp, index, old, new):
     return build_library(path, Path(tmp))
 
 
-def flash_power(torch, fmod, fault_libs, entry, plain, q, k, v):
-    """The power of the full-width bf16 comparison: the share of its
-    tolerance, max |out - plain| / (tol * (1 + |plain|)), that the kernel
-    and each planted fault use, on the path's q and on q at unit scale.
-    Returns the shares and the required faults that the path's comparison
-    did not reject. The faults' launches are not counted."""
-    tol = FLASH_TOL["bfloat16"]
+def counts_of(wrapper):
+    """A copy of a kernel wrapper's launch counters (its attributes)."""
+    return {k_: dict(v) if isinstance(v, dict) else v for k_, v in vars(wrapper).items()}
+
+
+def run_with(mod, wrapper, lib, fn):
+    """``fn()`` with ``mod``'s kernel bound to the loaded library ``lib``
+    (a planted fault, a build without the NaN guard); the wrapper's launch
+    counters are restored afterwards, since these launches are no path's."""
+    real, saved = mod._library, counts_of(wrapper)
+    mod._library = lambda: lib
+    try:
+        return fn()
+    finally:
+        mod._library = real
+        vars(wrapper).update(saved)
+
+
+def in_turns(torch, mod, wrapper, lib, call, iters):
+    """CUDA-event ms of ``call()`` with ``mod``'s own library and with
+    ``lib``, in turns (own, other, other, own), on the same inputs; no
+    launch is counted."""
+    saved = counts_of(wrapper)
+    ms = {"own": [], "other": []}
+    for which in ("own", "other", "other", "own"):
+        if which == "own":
+            ms[which].append(cuda_ms(torch, call, iters))
+        else:
+            ms[which].append(run_with(mod, wrapper, lib, lambda: cuda_ms(torch, call, iters)))
+    torch.cuda.synchronize()
+    vars(wrapper).update(saved)
+    return ms
+
+
+def device_nan(torch, dev):
+    """A NaN made on the card (0 / 0) and its bit pattern: CUDA's division
+    returns the canonical 0x7fffffff, whose top mantissa bits are all set,
+    unlike torch's host-made ``nan`` (0x7fc00000)."""
+    nan = torch.zeros((), device=dev) / 0
+    return nan, f"0x{int(nan.view(torch.int32).item()) & 0xFFFFFFFF:08x}"
+
+
+def flash_power(torch, fmod, faults, fault_libs, key, entry, plain, q, k, v):
+    """The power of a full-width comparison in dtype ``key``: the share of
+    its tolerance, max |out - plain| / (tol * (1 + |plain|)), that the kernel
+    and each planted fault of ``faults`` use, on the path's q and on q at
+    unit scale. Returns the shares and the required faults that the path's
+    comparison did not reject. The faults' launches are not counted."""
+    tol = FLASH_TOL[key]
 
     def share(out, ref):
         return float(((out.float() - ref.float()).abs() / (tol * (1 + ref.float().abs()))).max())
 
-    real_library, launches = fmod._library, fmod.flash_attention_kernel.launches
+    wrapper = fmod.flash_attention_kernel
+    saved = counts_of(wrapper)
     shares = {}
     for label, qs in (("path", q), ("unit scale", (q.float() / FLASH_Q_SCALE).to(q.dtype))):
         ref = plain(qs, k, v)
         out = entry(qs, k, v)
         row = {"kernel": share(out, ref)}
-        for name, old, _, _ in FLASH_FAULTS:
+        for name, old, _, _ in faults:
             if old is None:
                 bad = out.clone()
                 bad[:, 512:] = 0
             else:
-                fmod._library = functools.partial(fmod.bind, fault_libs[name])
-                try:
-                    bad = entry(qs, k, v)
-                finally:
-                    fmod._library = real_library
+                bad = run_with(fmod, wrapper, fmod.bind(fault_libs[name]), lambda: entry(qs, k, v))
             row[name] = share(bad, ref)
         shares[label] = row
     torch.cuda.synchronize()
-    fmod.flash_attention_kernel.launches = launches
-    missed = [name for name, _, _, must in FLASH_FAULTS if must and shares["path"][name] <= 1.0]
+    vars(wrapper).update(saved)
+    missed = [name for name, _, _, must in faults if must and shares["path"][name] <= 1.0]
     return shares, missed
 
 
@@ -408,18 +483,12 @@ def gemm_power(torch, kmod, fault_libs, a, b, ref):
         out = kmod.matmul_kernel(a, b, block_m=64, block_n=64, block_k=64)
         return float(((out - ref).abs() / (tol * (1 + ref.abs()))).max())
 
-    real_library = kmod._library
-    launches = (kmod.matmul_kernel.launches, dict(kmod.matmul_kernel.launches_by_copy))
+    saved = counts_of(kmod.matmul_kernel)
     shares = {"kernel": share()}
     for name, _, _ in GEMM_FAULTS:
-        lib = kmod.bind(fault_libs[name])
-        kmod._library = lambda: lib  # noqa: E731
-        try:
-            shares[name] = share()
-        finally:
-            kmod._library = real_library
+        shares[name] = run_with(kmod, kmod.matmul_kernel, kmod.bind(fault_libs[name]), share)
     torch.cuda.synchronize()
-    kmod.matmul_kernel.launches, kmod.matmul_kernel.launches_by_copy = launches
+    vars(kmod.matmul_kernel).update(saved)
     return shares, [name for name, _, _ in GEMM_FAULTS if shares[name] <= 1.0]
 
 
@@ -537,10 +606,11 @@ def sdpa_efficient_ms(torch, q, k, v):
         return None, f"EFFICIENT_ATTENTION not available for these inputs: {first[:200]}"
 
 
-def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
-    """Phase 8: flash attention against its plain version, its ops path, the
-    power of the full-width comparison and the timing. Returns the phase's
-    record with the kernel's JSON entry."""
+def phase_flash(torch, dev, peak, rates, fmod, fault_libs, f32_fault_libs, launches):
+    """Phase 8: flash attention against its plain version (with a NaN made on
+    the card in one f32 case), its ops path, the power of the full-width
+    comparisons (bf16 and f32) and the timing. Returns the phase's record
+    with the kernels' JSON entries (bf16 and f32)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
@@ -569,8 +639,28 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
         if causal and sq > skv:  # the first sq - skv queries see no key: exactly 0
             checks.hold(key, out[:, : sq - skv], torch.zeros_like(out[:, : sq - skv]), 0.0,
                         f"{label} {key}: rows that see no key")
-    log(f"[8 flash] kernel vs plain, {checks.n} checks (sweep, traps, decode; f32 and bf16): "
-        f"max_abs_err {checks.errs}, failures {len(checks.failures)}")
+    # A NaN made on the card in one element of q (f32, the first sweep case):
+    # that query row, and only that row, is NaN in the plain version. Not in
+    # V: the kernel skips masked tiles at its own tile size, while the plain
+    # version multiplies the 0s of P by every V row, so a NaN there spreads
+    # differently in the two for no fault of either.
+    nan, nan_bits = device_nan(torch, dev)
+    _, bh, sq, skv, d, causal, win, cap, bq, bk = FLASH_CASES[0]
+    q, k, v = randn(bh, sq, d), randn(bh, skv, d), randn(bh, skv, d)
+    q[1, 100, 5] = nan
+    kw = dict(causal=causal, window=win, logit_cap=cap)
+    ref = flash_attention_plain(q, k, v, **kw)
+    out = fmod.flash_attention_kernel(q, k, v, block_q=bq, block_k=bk, **kw)
+    torch.cuda.synchronize()
+    checks.hold_nans("float32", out, ref, FLASH_TOL["float32"], f"NaN {nan_bits} in q[1, 100, 5]")
+    nan_rows = sorted({tuple(x) for x in ref.isnan().nonzero()[:, :2].tolist()})
+    nan_case = {"bits": nan_bits, "plain_nan_rows": nan_rows, "kernel_nan": int(out.isnan().sum()),
+                "plain_nan": int(ref.isnan().sum())}
+    log(f"[8 flash] NaN made on the card, bits {nan_bits}, in q[1, 100, 5] (f32 {FLASH_CASES[0][1:5]}): "
+        f"kernel NaN at {nan_case['kernel_nan']} elements, plain at {nan_case['plain_nan']} "
+        f"(rows {nan_rows}); positions equal: {torch.equal(out.isnan(), ref.isnan())}")
+    log(f"[8 flash] kernel vs plain, {checks.n} checks (sweep, traps, decode, the NaN case; f32 and "
+        f"bf16): max_abs_err {checks.errs}, failures {len(checks.failures)}")
     checks.stop_if_failed("phase 8, kernel cases")
 
     inputs = {}
@@ -578,15 +668,16 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
         inputs[name, dtype] = (randn(b, s, h, d, dtype=dtype, scale=FLASH_Q_SCALE),
                                randn(b, s, kv, d, dtype=dtype), randn(b, s, kv, d, dtype=dtype))
     outs = {}
-    fmod.flash_attention_kernel.launches = 0
+    fmod.reset_counts()
     for (name, _, kw), dtype in itertools.product(FLASH_PATH, dtypes):
         outs[name, dtype] = flash_attention(*inputs[name, dtype], **kw)
     torch.cuda.synchronize()
     launches["flash_attention[ops]"] = fmod.flash_attention_kernel.launches
+    by_dtype = dict(fmod.flash_attention_kernel.launches_by_dtype)
     log(f"[8 flash] ops path (gqa, qwen3-14b, gemma2-27b; f32 and bf16): flash kernel launches "
-        f"{launches['flash_attention[ops]']}")
-    if launches["flash_attention[ops]"] == 0:
-        sys.exit("chip_smoke: the flash_attention path launched no flash-attention kernel")
+        f"{launches['flash_attention[ops]']} (by dtype: {by_dtype})")
+    if not all(by_dtype.values()):
+        sys.exit(f"chip_smoke: the flash_attention path did not launch both flash kernels: {by_dtype}")
     by_config = Checks(torch, "the flash-attention kernel")  # the same comparisons, per config
     for (name, _, kw), dtype in itertools.product(FLASH_PATH, dtypes):
         key = str(dtype).split(".")[1]
@@ -602,13 +693,17 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
         + ", ".join(f"{k_} {x:.4g}" for k_, x in by_config.used.items()))
     checks.stop_if_failed("phase 8, ops path")
 
-    power, missed = flash_power(torch, fmod, fault_libs, lambda q, k, v: flash_attention(q, k, v),
-                                plain_by_head, *inputs["qwen3-14b", torch.bfloat16])
-    for label, row in power.items():
-        log(f"[8 power] qwen3-14b bf16, q at {label}: share of tolerance used by "
-            + ", ".join(f"{n_}: {x:.4g}" for n_, x in row.items()))
-    if missed:
-        sys.exit(f"chip_smoke: the full-width flash comparison does not reject {missed}")
+    power = {}
+    for key, faults, libs in (("bfloat16", FLASH_FAULTS, fault_libs),
+                              ("float32", FLASH_F32_FAULTS, f32_fault_libs)):
+        power[key], missed = flash_power(torch, fmod, faults, libs, key,
+                                         lambda q, k, v: flash_attention(q, k, v), plain_by_head,
+                                         *inputs["qwen3-14b", getattr(torch, key)])
+        for label, row in power[key].items():
+            log(f"[8 power] qwen3-14b {key}, q at {label}: share of tolerance used by "
+                + ", ".join(f"{n_}: {x:.4g}" for n_, x in row.items()))
+        if missed:
+            sys.exit(f"chip_smoke: the full-width {key} flash comparison does not reject {missed}")
 
     rows = []
     for (name, (b, s, h, kv, d), kw), dtype in itertools.product(FLASH_PATH[1:], dtypes):
@@ -617,9 +712,15 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
         pkw = {a: kw[a] for a in ("window", "logit_cap") if a in kw}
         flops = 4.0 * d * b * h * live_pairs(s, s, True, kw.get("window"))
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        bound_ms, bound_by = bound(flops, nbytes, peak["f32_flops" if key == "float32" else "bf16_flops"], peak)
+        if key == "float32":  # 3xTF32 on the tensor cores; FFMA as the old roof
+            bound_ms, bound_by = bound(3 * flops, nbytes, peak["tf32_flops"], peak)
+            extra = {"bound_ms_ffma": bound(flops, nbytes, peak["f32_flops"], peak)[0],
+                     "mma_sync_ms": bound(3 * flops, nbytes, rates["tf32"], peak)[0]}
+        else:
+            bound_ms, bound_by = bound(flops, nbytes, peak["bf16_flops"], peak)
+            extra = {"mma_sync_ms": None}
         row = {"config": name, "dtype": key, "shape": [b, s, h, kv, d], "flops": flops, "bytes": nbytes,
-               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_ms": bound_ms, "bound_by": bound_by, **extra,
                "ms": cuda_ms(torch, lambda: flash_attention(q, k, v, **kw), 5),
                "plain_ms": cuda_ms(torch, lambda: plain_by_head(q, k, v, **pkw), 2, warmup=1)}
         row["tflops"] = flops / row["ms"] * 1e-9
@@ -637,8 +738,11 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
             row["library"] = "none: no single PyTorch call applies the tanh softcap"
         rows.append(row)
         flash_ms = row.get("sdpa_flash_ms")
+        bounds = (f"bound {bound_ms:.4f} ms ({bound_by}"
+                  + (f", 3xTF32 at 494.7 TFLOP/s; FFMA at 67: {row['bound_ms_ffma']:.4f} ms; at this "
+                     f"card's mma.sync rate {row['mma_sync_ms']:.4f} ms)" if key == "float32" else ")"))
         log(f"[8 time] {name} {key}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
-            f"{100 * row['share_of_bound']:.1f} % of the bound), bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * row['share_of_bound']:.1f} % of the bound), {bounds}, "
             f"plain {row['plain_ms']:.4f} ms, library "
             + (f"{row['library_ms']:.4f} ms ({row['library']})" if row["library_ms"] is not None
                else f"- ({row['library']})")
@@ -653,22 +757,36 @@ def phase_flash(torch, dev, peak, fmod, fault_libs, launches):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:103",
-        "launches": launches["flash_attention[ops]"],
-        "max_abs_err": max(checks.errs.values()),
+        "launches": by_dtype["bfloat16"],
+        "max_abs_err": checks.errs["bfloat16"],
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "tflops": head["tflops"], "share_of_bound": head["share_of_bound"],
-        "sdpa_flash_ms": head.get("sdpa_flash_ms"), "tolerance": FLASH_TOL,
-        "f32_ms": f32["ms"], "f32_library_ms": f32["library_ms"],
-        "f32_sdpa_efficient_ms": f32.get("sdpa_efficient_ms"),
-        "config": "qwen3-14b", "dtype": "bfloat16", "shape": head["shape"],
-        "max_abs_err_by_dtype": checks.errs,
+        "sdpa_flash_ms": head.get("sdpa_flash_ms"), "tolerance": FLASH_TOL["bfloat16"],
+        "kernel": "flash_bf16_kernel", "config": "qwen3-14b", "dtype": "bfloat16", "shape": head["shape"],
+        "launches_by_path": {"flash_attention[ops]": launches["flash_attention[ops]"]},
+    }
+    kernel_f32 = {
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:103",
+        "launches": by_dtype["float32"],
+        "max_abs_err": checks.errs["float32"],
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"], "library_ms": f32["sdpa_efficient_ms"],
+        "library": f32["sdpa_efficient"],
+        "tflops": f32["tflops"], "share_of_bound": f32["share_of_bound"],
+        "bound_ms_3xtf32": f32["bound_ms"], "bound_ms_ffma": f32["bound_ms_ffma"],
+        "mma_sync_ms": f32["mma_sync_ms"], "sdpa_dispatcher_ms": f32["library_ms"],
+        "tolerance": FLASH_TOL["float32"], "kernel": "flash_f32_kernel",
+        "config": "qwen3-14b", "dtype": "float32", "shape": f32["shape"],
+        "gemma2_27b_ms": next(r["ms"] for r in rows if r["config"] == "gemma2-27b" and r["dtype"] == "float32"),
         "launches_by_path": {"flash_attention[ops]": launches["flash_attention[ops]"]},
     }
     return {"checks": checks.n, "max_abs_err": checks.errs, "tolerance_used": checks.used,
-            "tolerance_used_by_config": by_config.used,
+            "tolerance_used_by_config": by_config.used, "nan_case": nan_case,
             "tolerance": FLASH_TOL, "q_scale_of_path": FLASH_Q_SCALE, "power": power,
-            "timings": rows, "kernel": kernel}
+            "timings": rows, "kernels": [kernel, kernel_f32]}
 
 
 def ssd_sass_check(smod, lib_path, spills):
@@ -725,24 +843,21 @@ def ssd_power(torch, smod, fault_libs, run, ref):
     def share(out):
         return float(((out - ref).abs() / (SSD_TOL * (1 + ref.abs()))).max())
 
-    real_library, launches = smod._library, smod.ssd_scan_kernel.launches
+    saved = counts_of(smod.ssd_scan_kernel)
     shares = {"kernel": share(run())}
     for name, _, _, _ in SSD_FAULTS:
-        lib = smod.bind(fault_libs[name])
-        smod._library = lambda: lib  # noqa: E731
-        try:
-            shares[name] = share(run())
-        finally:
-            smod._library = real_library
+        shares[name] = share(run_with(smod, smod.ssd_scan_kernel, smod.bind(fault_libs[name]), run))
     torch.cuda.synchronize()
-    smod.ssd_scan_kernel.launches = launches
+    vars(smod.ssd_scan_kernel).update(saved)
     return shares, [name for name, _, _, must in SSD_FAULTS if must and not shares[name] > 1.0]
 
 
-def phase_ssd(torch, dev, peak, smod, launches, fault_libs, rates, built):
+def phase_ssd(torch, dev, peak, smod, launches, fault_libs, rates, built, unguarded):
     """Phase 9: the SSD library's SASS, the kernel against its plain
-    version, the ``ssd_mix`` path at mamba2-1.3b's width, the power of that
-    comparison (planted faults) and the timing of the scan and each pass."""
+    version (with a NaN made on the card in one case), the ``ssd_mix`` path
+    at mamba2-1.3b's width, the power of that comparison (planted faults),
+    the timing of the scan and each pass, and what the split's NaN guard
+    costs (``unguarded``: the library built without it)."""
     from repro_torch.kernels.ssd.ops import ssd_mix
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
@@ -775,6 +890,26 @@ def phase_ssd(torch, dev, peak, smod, launches, fault_libs, rates, built):
         what = f"{label} {(b, s, h, p, n, g, chunk)}"
         checks.hold("float32", out, ref, SSD_TOL, what)
         by_case.hold(what, out, ref, SSD_TOL, what)
+    # A NaN made on the card in one element of C (the groups case, group 1):
+    # token 40's y, for every head of that group, is NaN in the plain version.
+    nan, nan_bits = device_nan(torch, dev)
+    label, b, s, h, p, n, g, chunk, _, _ = SSD_CASES[3]
+    x, dt, a_log, bm, cm = mixer_inputs(b, s, h, p, n, g)
+    xbar, logda = kernel_inputs(x, dt, a_log)
+    cm[0, 40, 1, 3] = nan
+    ref = plain(xbar, logda, bm, cm)
+    run = lambda: smod.ssd_scan_kernel(xbar, logda, bm, cm, chunk=chunk)  # noqa: E731
+    out = run()
+    torch.cuda.synchronize()
+    checks.hold_nans("float32", out, ref, SSD_TOL, f"NaN {nan_bits} in C[0, 40, 1, 3], {label}")
+    nan_case = {"bits": nan_bits, "plain_nan_tokens_heads": sorted(
+                    {tuple(t_) for t_ in ref.isnan().nonzero()[:, :3].tolist()}),
+                "kernel_nan": int(out.isnan().sum()), "plain_nan": int(ref.isnan().sum()),
+                "unguarded_nan": int(run_with(smod, smod.ssd_scan_kernel, unguarded, run).isnan().sum())}
+    log(f"[9 ssd] NaN made on the card (bits {nan_bits}) in C[0, 40, 1, 3] ({label} "
+        f"{(b, s, h, p, n, g, chunk)}): kernel NaN at {nan_case['kernel_nan']} elements, plain at "
+        f"{nan_case['plain_nan']} ((batch, token, head): {nan_case['plain_nan_tokens_heads']}); "
+        f"the build without the guard: NaN at {nan_case['unguarded_nan']}")
     log(f"[9 ssd] kernel vs plain, {checks.n} checks: max_abs_err {checks.errs}, "
         f"failures {len(checks.failures)}; share of tolerance used per case: "
         + ", ".join(f"{k_} {x:.4g}" for k_, x in by_case.used.items()))
@@ -843,6 +978,12 @@ def phase_ssd(torch, dev, peak, smod, launches, fault_libs, rates, built):
         f"bytes {row['bytes_ms']:.4f}; flops: data {flops:.4e}, kernel {flops_kernel:.4e} "
         f"({row['kernel_tflops']:.1f} TFLOP/s), with the scores per head {flops_per_head:.4e}, "
         f"the site's formula {flops_ref:.4e}; plain {row['plain_ms']:.4f} ms, library - ({row['library']})")
+    guard = in_turns(torch, smod, smod.ssd_scan_kernel, unguarded,
+                     lambda: smod.ssd_scan_kernel(xbar, logda, bm, cm, chunk=chunk), 10)
+    row["guard_cost_ms"] = {"guarded": guard["own"], "unguarded": guard["other"]}
+    log(f"[9 guard] mamba2-1.3b, in turns (guarded, unguarded, unguarded, guarded): guarded "
+        + ", ".join(f"{x:.4f}" for x in guard["own"]) + " ms, without the guard "
+        + ", ".join(f"{x:.4f}" for x in guard["other"]) + " ms")
     kernel = {
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:72",
@@ -856,6 +997,7 @@ def phase_ssd(torch, dev, peak, smod, launches, fault_libs, rates, built):
     }
     return {"checks": checks.n, "max_abs_err": checks.errs, "tolerance_used": checks.used,
             "tolerance_used_by_case": by_case.used, "tolerance": SSD_TOL, "power": power,
+            "nan_case": nan_case,
             "sass": sass, "timings": [row], "kernel": kernel}
 
 
@@ -956,13 +1098,17 @@ def main():
     # mma.sync rate probe and the planted faults of phases 3, 8 and 9 beside
     # the GEMM
     builds = concurrent.futures.ThreadPoolExecutor(
-        max_workers=3 + len(FLASH_FAULTS) + len(GEMM_FAULTS) + len(SSD_FAULTS))
+        max_workers=5 + len(FLASH_FAULTS) + len(FLASH_F32_FAULTS) + len(GEMM_FAULTS) + len(SSD_FAULTS))
     t_builds = time.perf_counter()
     later_builds = {"flash_attention": builds.submit(fmod.build), "ssd": builds.submit(smod.build)}
     peak_build = builds.submit(build_library, kmod.SOURCE.parent / "mma_peak.cu", kmod.BUILD_DIR)
     fault_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_faults_")
     fault_builds = {name: builds.submit(build_fault, fmod, build_library, fault_dir.name, i, old, new)
                     for i, (name, old, new, _) in enumerate(FLASH_FAULTS) if old is not None}
+    f32_fault_builds = {name: builds.submit(build_fault, fmod, build_library, fault_dir.name, f"f32_{i}", old, new)
+                        for i, (name, old, new, _) in enumerate(FLASH_F32_FAULTS)}
+    unguarded_builds = {mod: builds.submit(build_fault, mod, build_library, fault_dir.name, "unguarded",
+                                           TF32_GUARD, "") for mod in (kmod, smod)}
     gemm_fault_builds = {name: builds.submit(build_fault, kmod, build_library, fault_dir.name, i, old, new)
                          for i, (name, old, new) in enumerate(GEMM_FAULTS)}
     ssd_fault_builds = {name: builds.submit(build_fault, smod, build_library, fault_dir.name, i, old, new)
@@ -1039,8 +1185,26 @@ def main():
         + ", ".join(f"{n_}: {x:.4g}" for n_, x in gemm_shares.items()))
     if missed:
         sys.exit(f"chip_smoke: the 1000^3 f32 GEMM comparison does not reject {missed}")
+    # A NaN made on the card in one element of A: row 137 of C, and only that
+    # row, is NaN in the plain version, at every tile; the build without the
+    # split's NaN guard is shown beside it.
+    unguarded = {mod: mod.bind(future.result()) for mod, future in unguarded_builds.items()}
+    nan, nan_bits = device_nan(torch, dev)
+    a_nan = a.clone()
+    a_nan[137, 421] = nan
+    ref_nan = matmul_ref(a_nan, b)
+    for bm, bn, bk in kmod.SUPPORTED_TILES:
+        gemm_checks.hold_nans("float32", kmod.matmul_kernel(a_nan, b, block_m=bm, block_n=bn, block_k=bk),
+                              ref_nan, TOL["float32"], f"NaN {nan_bits} in A[137, 421], tile {(bm, bn, bk)}")
+    gemm_nan = {"bits": nan_bits, "plain_nan": int(ref_nan.isnan().sum()),
+                "unguarded_nan": int(run_with(kmod, kmod.matmul_kernel, unguarded[kmod], lambda: kmod.matmul_kernel(
+                    a_nan, b, block_m=64, block_n=64, block_k=64)).isnan().sum())}
+    log(f"[3 NaN] 1000^3 f32, a NaN made on the card (bits {nan_bits}) in A[137, 421]: plain NaN at "
+        f"{gemm_nan['plain_nan']} elements (row 137); every tile's NaN positions equal: "
+        f"{not gemm_checks.failures}; the build without the guard, tile 64^3: NaN at {gemm_nan['unguarded_nan']}")
+    fail_on("phase 3, NaN case")
     details["gemm_phase3"] = {"tolerance_used_by_tile": by_tile.used, "max_abs_err_by_tile": by_tile.errs,
-                              "launches_by_copy": by_copy, "power": gemm_shares}
+                              "launches_by_copy": by_copy, "power": gemm_shares, "nan_case": gemm_nan}
 
     # ------------------------------------------------------------ 4. time --
     rates = mma_rates(torch, peak_build.result())
@@ -1093,6 +1257,15 @@ def main():
                         f"{100 * row['share_of_bound'][t]:.1f} % of the bound)"
                         for t, ms in row["kernel_ms"].items()))
     details["timings"] = timings
+    # What the split's NaN guard costs: the same build without it, in turns.
+    a = torch.randn(1000, 1000, generator=gen, device=dev) / math.sqrt(1000)
+    b = torch.randn(1000, 1000, generator=gen, device=dev)
+    guard = in_turns(torch, kmod, kmod.matmul_kernel, unguarded[kmod],
+                     lambda: kmod.matmul_kernel(a, b, block_m=64, block_n=64, block_k=64), 50)
+    details["gemm_guard_cost_ms"] = {"guarded": guard["own"], "unguarded": guard["other"]}
+    log(f"[4 guard] 1000^3 f32, tile 64^3, in turns (guarded, unguarded, unguarded, guarded): guarded "
+        + ", ".join(f"{x:.4f}" for x in guard["own"]) + " ms, without the guard "
+        + ", ".join(f"{x:.4f}" for x in guard["other"]) + " ms")
     host = host_cost(torch, kmod, dev)
     details["host_cost_us_per_launch"] = host
     log(f"[4 host] us per launch over {HOST_LAUNCHES} launches of a 64^3 GEMM, one synchronize: "
@@ -1201,7 +1374,21 @@ def main():
     bf16_spills = [ln for ln in built["flash_attention"]["ptxas_spills"] if "bf16" in ln]
     if bf16_spills:
         sys.exit(f"chip_smoke: bf16 flash instantiations spill: {bf16_spills}")
+    # The f32 flash kernel runs its products on mma.sync (3xTF32) and loads by
+    # cp.async: each f32 instantiation's SASS holds HMMA and LDGSTS, touches no
+    # local memory, and none spills.
+    f32 = {k_: c for k_, c in sass.items() if "f32" in k_}
+    log("[7 sass] flash_attention f32: " + "; ".join(
+        f"{k_} HMMA {c['HMMA']} LDGSTS {c['LDGSTS']} LDL/STL {c['LDL'] + c['STL']}" for k_, c in f32.items()))
+    missing = [k_ for k_, c in f32.items() if not (c["HMMA"] and c["LDGSTS"]) or c["LDL"] or c["STL"]]
+    if len(f32) != len(fmod.HEAD_DIMS) or missing:
+        sys.exit(f"chip_smoke: f32 flash instantiations {sorted(f32)} without HMMA and LDGSTS or with local "
+                 f"memory: {missing}")
+    f32_spills = [ln for ln in built["flash_attention"]["ptxas_spills"] if "f32" in ln]
+    if f32_spills:
+        sys.exit(f"chip_smoke: f32 flash instantiations spill: {f32_spills}")
     fault_libs = {name: future.result() for name, future in fault_builds.items()}
+    f32_fault_libs = {name: future.result() for name, future in f32_fault_builds.items()}
     ssd_fault_libs = {name: future.result() for name, future in ssd_fault_builds.items()}
     builds.shutdown()
     fmod._library()
@@ -1209,9 +1396,9 @@ def main():
     built["seconds_from_start_of_phase_2"] = time.perf_counter() - t_builds
     details["build_attention_ssd"] = built
 
-    flash = phase_flash(torch, dev, peak, fmod, fault_libs, launches)
+    flash = phase_flash(torch, dev, peak, rates, fmod, fault_libs, f32_fault_libs, launches)
     details["flash_attention"] = flash
-    ssd = phase_ssd(torch, dev, peak, smod, launches, ssd_fault_libs, rates, built["ssd"])
+    ssd = phase_ssd(torch, dev, peak, smod, launches, ssd_fault_libs, rates, built["ssd"], unguarded[smod])
     fault_dir.cleanup()
     details["ssd"] = ssd
     details["sites"] = phase_sites(torch, rank_site, attention_site, ssd_chunk_site)
@@ -1240,7 +1427,7 @@ def main():
         "tolerance": TOL, "shape": main_row["shape"], "tile": list(default_tile),
         "launches_by_path": gemm_launches, "launches_by_copy_by_path": launches_by_copy,
     }
-    kernels = [kernel, flash["kernel"], ssd["kernel"]]
+    kernels = [kernel, *flash["kernels"], ssd["kernel"]]
     details["kernels"] = kernels
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(details, indent=1))

@@ -18,9 +18,14 @@
 //   roof is the tensor cores' 989 TFLOP/s; the softcap's tanh and every
 //   score's exp run on the MUFU units (about 16 results per clock per SM)
 //   and are not counted in that roof.
-// * f32: flash_f32_kernel, f32 FFMA (SIMT). On wgmma f32 would be TF32 and
-//   would not compute the f32 function to the reference's 2e-3; its roof is
-//   the FP32 rate outside the tensor cores, about 67 TFLOP/s.
+// * f32: flash_f32_kernel, both products as 3xTF32 on the tensor cores
+//   (mma.sync m16n8k8): each f32 operand x is split into TF32 parts
+//   hi + lo and a product is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, which
+//   carries f32 inputs to about 2^-20 and computes the f32 function far
+//   inside the reference's 2e-3 (one TF32 product for Q K^T does not). Its
+//   roof is three TF32 products at the sheet's 494.7 TFLOP/s, 165 TFLOP/s
+//   of f32 work (mma.sync itself reaches about 320 TFLOP/s TF32 on this
+//   card, PERF.md), against FFMA's 67 TFLOP/s outside the tensor cores.
 //
 // Both kernels:
 // * Causal and window skipping are loop bounds, not masked work: the first
@@ -37,6 +42,53 @@
 // * The CTA tile is the kernel's own choice. The caller's block_q / block_k
 //   only set the wrapper's divisibility contract; the tile changes only the
 //   order of the sums.
+//
+// flash_f32_kernel (one CTA of 8 warps per (batch * head, 128-query tile),
+// 16 query rows a warp, 32-key tiles):
+// * Q (128 rows) and a 2-stage ring of K and V tiles live in shared memory
+//   as the f32 inputs, filled by 16-byte cp.async (rows past the end
+//   zero-filled); one barrier a tile, after which the next tile's copy is
+//   issued, so it lands while this one is computed. Rows are padded to
+//   D + 4 floats: the fragment reads, Q and K at (row g, column t) and V at
+//   (rows 2t and 2t + 1, column g), fall on 32 different banks. 132 KB at
+//   d = 128 (one CTA an SM), 68 KB at d = 64.
+// * The split is done where a fragment is read, in two instructions: hi is
+//   x with its 13 low mantissa bits cleared (a truncation, so no carry can
+//   reach the exponent or the sign: a NaN stays a NaN or an inf, an inf an
+//   inf, and a finite x stays finite up to FLT_MAX), lo = x - hi exactly,
+//   of which the tensor core reads the top 10 mantissa bits. gemm.cu's
+//   rounded split costs five instructions an element plus its NaN guard.
+//   Splitting K and V once per CTA into hi and lo arrays instead would
+//   double their shared memory and the bytes of every fragment read (each
+//   is read by all 8 warps), and add a pass and a barrier a tile. The two
+//   instructions are still the largest cost beside the products: a build
+//   that left them out (wrong numbers, the same mma) ran markedly faster.
+// * S = Q K^T over d, the three products of every k8 step accumulated in
+//   the mma. The tensor core truncates as it accumulates; over d = 128 (48
+//   products) that stays far inside the tolerance (chip_smoke.py prints the
+//   share at qwen3-14b), while a fresh fragment per k8 step, added to S by
+//   FADD, cost four FADDs per three products and timed measurably slower.
+//   The softmax works on the S fragment in registers as
+//   the bf16 kernel's does (a row's keys on the 4 threads of a quad), with
+//   expf and the accurate tanhf in f32.
+// * O += P V with P in registers: the C fragment gives a thread keys 2t and
+//   2t + 1 of each k8 slab, the A fragment wants columns t and t + 4, so
+//   the keys of a slab are taken in a permuted order (A's column t is key
+//   2t, column t + 4 is key 2t + 1) and B's rows t and t + 4 are read from
+//   V's rows 2t and 2t + 1. For each n8 fragment of O the tile's 4 slabs
+//   go into a fresh fragment, added to O by FADD.
+// * Warps whose rows see none of a tile skip it but keep the barrier; the
+//   grid walks the longest causal tiles first, as the bf16 grid does.
+// * Registers: O (D / 2 floats), S (16) and P's hi and lo (32). 64-key
+//   tiles (S 32, P 64) spilled at d = 128 within 255 registers; the tile is
+//   32 keys, and chip_smoke.py fails on an f32 spill or local-memory access.
+// Where the trouble lay: the f32 function must survive the tensor core's
+// 10-bit operands and its truncating accumulation (hence the split, and a
+// fresh fragment per tile of P V, since O sums over the whole sequence);
+// registers (64-key tiles spilled at d = 128); P must become an A
+// fragment without a trip through shared memory (the permutation); and
+// every operand element costs its split where it is read, so the split
+// must be as short as a split can be (the truncation).
 //
 // flash_bf16_kernel (one CTA of three warpgroups per (batch * head,
 // 128-query tile)):
@@ -129,189 +181,299 @@ struct Params {
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
+// The kv tiles [begin, end), of kKeys keys each, that query rows r_lo..r_hi
+// (inclusive) can see.
+struct TileRange {
+  int begin, end;
+};
+template <int kKeys>
+__device__ __forceinline__ TileRange kv_tiles(const Params& p, int r_lo, int r_hi) {
+  if (r_hi < r_lo) return {0, 0};
+  int kv_begin = 0, kv_end = p.skv;
+  if (p.causal) kv_end = min(kv_end, r_hi + p.q_offset + 1);
+  if (p.has_window) kv_begin = max(kv_begin, r_lo + p.q_offset - p.window + 1);
+  if (kv_end <= kv_begin) return {0, 0};
+  return {kv_begin / kKeys, (kv_end + kKeys - 1) / kKeys};
+}
+
 // ------------------------------------------------------------------ f32 --
-// flash_f32_kernel: one CTA of 256 threads (16 x 16) per (batch * head,
-// 64-query tile), 64-key tiles, f32 FFMA for both products. Each thread owns
-// 4 query rows (strided by 16) and, for the scores, 4 key columns; row max
-// and row sum are reduced over the 16 threads of a row with warp shuffles.
-// Q and K are staged transposed in shared memory (one float of padding per
-// row against bank conflicts), V row-major, P with one float of padding:
-// 113 KB at d = 128, dynamic shared memory.
+// flash_f32_kernel: one CTA of 8 warps per (batch * head, 128-query tile),
+// 16 query rows a warp, 32-key tiles, both products as 3xTF32 on mma.sync
+// m16n8k8. The file's note gives the design.
 
-constexpr int kBQ = 64;        // query rows of a CTA tile
-constexpr int kBK = 64;        // key rows of a kv tile
-constexpr int kThreadsX = 16;  // threads along a tile's columns
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kRows = kBQ / 16;  // query rows per thread
-constexpr int kCols = kBK / kThreadsX;  // score columns per thread
+constexpr int kF32Rows = 128;               // query rows of a CTA
+constexpr int kF32Keys = 32;                // keys of a kv tile
+constexpr int kF32Threads = 2 * kF32Rows;   // 8 warps of 16 rows
+constexpr int kF32Stages = 2;               // K/V ring depth
 
-// Reduce over the 16 threads of one row (lanes 0-15 or 16-31 of a warp).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// Shared memory of the f32 kernel at head dim D, in floats: Q (128 rows),
+// then kF32Stages x (K, V), every row padded to D + 4 floats.
+template <int D>
+struct F32Geometry {
+  static constexpr int kPitch = D + 4;  // = 4 mod 32: fragment reads are free of bank conflicts
+  static constexpr int kQ = kF32Rows * kPitch;
+  static constexpr int kKV = kF32Keys * kPitch;  // one K or V tile
+  static constexpr int kSmem = (kQ + 2 * kF32Stages * kKV) * static_cast<int>(sizeof(float));
+  static_assert(kSmem <= 227 * 1024, "f32 shared memory above 227 KB");
+};
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
+               : "memory");
 }
-__device__ __forceinline__ float row_sum(float x) {
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Rows [r0, r0 + ROWS) of a [s, D] slice g (row stride ld floats) into
+// shared memory s at pitch D + 4, 16 bytes a copy; rows at or past rmax are
+// zero-filled (src-size 0) from g itself.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* s, const float* __restrict__ g, int64_t ld, int r0,
+                                          int rmax, int tid) {
+  constexpr int kPerRow = D / 4;
+  static_assert(ROWS * kPerRow % kF32Threads == 0, "copies do not tile the rows");
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+  for (int it = 0; it < ROWS * kPerRow / kF32Threads; ++it) {
+    const int idx = tid + it * kF32Threads;
+    const int r = idx / kPerRow, c = (idx % kPerRow) * 4;
+    const bool in = r0 + r < rmax;
+    cp_async_16(s + r * (D + 4) + c, in ? g + (r0 + r) * ld + c : g, in ? 16 : 0);
+  }
+}
+
+// x = hi + lo for the tensor core. hi is x truncated to TF32 (the 13 low
+// mantissa bits cleared, so no carry can reach the exponent or the sign),
+// lo = x - hi exactly; the tensor core reads lo's top 10 mantissa bits,
+// so x is carried to about 2^-20 of itself. A NaN gives hi NaN or inf and
+// lo NaN, an inf gives hi inf and lo NaN: either way the products are NaN,
+// never a finite number.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a * b, m16n8k8, TF32 in, f32 accumulate. Fragment layouts (PTX ISA):
+// lane = 4 g + t; A element (g or g+8, t or t+4), B element (t or t+4, g),
+// C elements (g or g+8, 2t and 2t+1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 template <int D>
-constexpr int smem_floats() {
-  return D * (kBQ + 1) + D * (kBK + 1) + kBK * D + kBQ * (kBK + 1);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, Params p) {
-  static_assert(D % kThreadsX == 0, "head dim must be a multiple of 16");
-  constexpr int DC = D / kThreadsX;  // output columns per thread
+                 const float* __restrict__ v, float* __restrict__ o, const Params p) {
+  using G = F32Geometry<D>;
+  constexpr int P = G::kPitch;
+  constexpr int NS = kF32Keys / 8;  // n8 score fragments of a tile; k8 slabs of P . V
+  constexpr int NO = D / 8;         // n8 output fragments
   extern __shared__ float4 smem_f32[];
-  float* qt = reinterpret_cast<float*>(smem_f32);  // [D][kBQ + 1], Q transposed
-  float* kt = qt + D * (kBQ + 1);                   // [D][kBK + 1], K transposed
-  float* vt = kt + D * (kBK + 1);                   // [kBK][D]
-  float* pt = vt + kBK * D;                         // [kBQ][kBK + 1]
+  float* qs = reinterpret_cast<float*>(smem_f32);
+  float* kv = qs + G::kQ;  // stage s: K at kv + 2 s kKV, V after it
 
   const int tid = threadIdx.x;
-  const int tx = tid % kThreadsX;
-  const int ty = tid / kThreadsX;
-  const int bi = blockIdx.y / p.h;
-  const int hi = blockIdx.y % p.h;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int bi = blockIdx.x / p.h;
+  const int hi = blockIdx.x % p.h;
   const int kvh = hi / p.g;
-  const float* qp = q + bi * p.qb + hi * p.qh;
   const float* kp = k + bi * p.kb + kvh * p.kh;
   const float* vp = v + bi * p.vb + kvh * p.vh;
-  float* op = o + bi * p.ob + hi * p.oh;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kF32Rows;  // the longest causal tiles first
+  const TileRange cta = kv_tiles<kF32Keys>(p, row0, min(row0 + kF32Rows, p.sq) - 1);
+  const int wrow0 = row0 + 16 * warp;
+  const int wrow_hi = min(wrow0 + 16, p.sq) - 1;  // last stored row of the warp
+  const TileRange own = kv_tiles<kF32Keys>(p, wrow0, wrow_hi);
+  const int warp_begin = own.begin;
+  const int warp_end = own.end;
+  const int qpos_lo = wrow0 + p.q_offset;
+  const int qpos_hi = wrow_hi + p.q_offset;
+  const int my_q = wrow0 + g + p.q_offset;  // this thread's rows: positions my_q, my_q + 8
 
-  const int row0 = blockIdx.x * kBQ;
-  const int rows = min(kBQ, p.sq - row0);
-  const int qpos_lo = row0 + p.q_offset;             // first query's position
-  const int qpos_hi = row0 + rows - 1 + p.q_offset;  // last query's position
-
-  // The keys this tile's queries can see: [kv_begin, kv_end).
-  int kv_begin = 0, kv_end = p.skv;
-  if (p.causal) kv_end = min(kv_end, qpos_hi + 1);
-  if (p.has_window) kv_begin = max(kv_begin, qpos_lo - p.window + 1);
-
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    qt[c * (kBQ + 1) + r] = r < rows ? qp[(row0 + r) * p.qs + c] : 0.f;
+  load_rows<D, kF32Rows>(qs, q + bi * p.qb + hi * p.qh, p.qs, row0, p.sq, tid);
+  if (cta.begin < cta.end) {
+    load_rows<D, kF32Keys>(kv, kp, p.ks, cta.begin * kF32Keys, p.skv, tid);
+    load_rows<D, kF32Keys>(kv + G::kKV, vp, p.vs, cta.begin * kF32Keys, p.skv, tid);
   }
+  cp_async_commit();
 
-  float m[kRows], l[kRows], acc[kRows][DC];
+  float o_acc[NO][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = neg_inf();
-    l[i] = 0.f;
+  for (int j = 0; j < NO; ++j) {
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) o_acc[j][e] = 0.f;
   }
+  float m[2] = {neg_inf(), neg_inf()};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-  for (int k0 = (kv_begin / kBK) * kBK; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers of kt, vt and pt are done
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const bool in = k0 + r < p.skv;
-      kt[c * (kBK + 1) + r] = in ? kp[(k0 + r) * p.ks + c] : 0.f;
-      vt[r * D + c] = in ? vp[(k0 + r) * p.vs + c] : 0.f;
-    }
+  for (int tile = cta.begin, i = 0; tile < cta.end; ++tile, ++i) {
+    // Tile `tile` has landed for every thread, and every warp is done with
+    // the stage that the next copy overwrites.
+    cp_async_wait_all();
     __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
+    if (tile + 1 < cta.end) {
+      float* next = kv + ((i + 1) % kF32Stages) * 2 * G::kKV;
+      load_rows<D, kF32Keys>(next, kp, p.ks, (tile + 1) * kF32Keys, p.skv, tid);
+      load_rows<D, kF32Keys>(next + G::kKV, vp, p.vs, (tile + 1) * kF32Keys, p.skv, tid);
     }
-#pragma unroll 8
-    for (int e = 0; e < D; ++e) {
-      float a[kRows], b[kCols];
+    cp_async_commit();
+    if (tile < warp_begin || tile >= warp_end) continue;  // no row of this warp sees the tile
+    const float* ks = kv + (i % kF32Stages) * 2 * G::kKV;
+    const float* vs = ks + G::kKV;
+
+    // S = Q K^T over d, accumulated in the mma.
+    float s[NS][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) a[i] = qt[e * (kBQ + 1) + ty + 16 * i];
+    for (int n = 0; n < NS; ++n) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) b[j] = kt[e * (kBK + 1) + tx + kThreadsX * j];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    }
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float* qa = qs + (16 * warp + g) * P + 8 * kk + t;
+      uint32_t qhi[4], qlo[4];
+      split_tf32(qa[0], qhi[0], qlo[0]);
+      split_tf32(qa[8 * P], qhi[1], qlo[1]);
+      split_tf32(qa[4], qhi[2], qlo[2]);
+      split_tf32(qa[8 * P + 4], qhi[3], qlo[3]);
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      for (int n = 0; n < NS; ++n) {
+        const float* kb = ks + (8 * n + g) * P + 8 * kk + t;
+        uint32_t khi[2], klo[2];
+        split_tf32(kb[0], khi[0], klo[0]);
+        split_tf32(kb[4], khi[1], klo[1]);
+        mma_tf32(s[n], qlo, khi);
+        mma_tf32(s[n], qhi, klo);
+        mma_tf32(s[n], qhi, khi);
       }
     }
 
-    // An edge tile holds some key that some query of the tile must not see.
-    const bool edge = (k0 + kBK > p.skv) || (p.causal && k0 + kBK - 1 > qpos_lo) ||
+    // Online softmax on the fragment: s[n][e] is row my_q + 8 (e >> 1), key
+    // k0 + 8 n + 2 t + (e & 1); a row's keys lie on the 4 threads of a quad.
+    const int k0 = tile * kF32Keys;
+    const bool edge = (k0 + kF32Keys > p.skv) || (p.causal && k0 + kF32Keys - 1 > qpos_lo) ||
                       (p.has_window && k0 <= qpos_hi - p.window);
+    if (p.has_cap) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = row0 + ty + 16 * i + p.q_offset;
-      float mx = neg_inf();
+      for (int n = 0; n < NS; ++n) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        float x = s[i][j] * p.scale;
-        if (p.has_cap) x = p.cap * tanhf(x / p.cap);
-        if (edge) {
-          const int kpos = k0 + tx + kThreadsX * j;
+        for (int e = 0; e < 4; ++e) s[n][e] = p.cap * tanhf(s[n][e] * p.scale / p.cap);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= p.scale;
+      }
+    }
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * n + 2 * t + (e & 1);
+          const int qpos = my_q + 8 * (e >> 1);
           bool ok = kpos < p.skv;
           if (p.causal) ok = ok && kpos <= qpos;
           if (p.has_window) ok = ok && kpos > qpos - p.window;
-          if (!ok) x = neg_inf();
+          if (!ok) s[n][e] = neg_inf();
         }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
       }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float m_use = m_new == neg_inf() ? 0.f : m_new;  // no -inf - -inf
-      const float alpha = expf(m[i] - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float pj = expf(s[i][j] - m_use);
-        sum += pj;
-        pt[(ty + 16 * i) * (kBK + 1) + tx + kThreadsX * j] = pj;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();
+    float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+    float alpha[2], mu[2];  // mu: the max the exponent subtracts, 0 for a row with no key yet
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      mu[r] = m_new == neg_inf() ? 0.f : m_new;
+      alpha[r] = expf(m[r] - mu[r]);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_acc[j][e] *= alpha[e >> 1];
+    }
 
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[kRows], vv[DC];
+    // P as the A operand of O += P V, in registers. The k8 slab n holds keys
+    // k0 + 8 n .. + 7 in a permuted order: A's column t is key 2t (C
+    // elements 0 and 2 of fragment n), column t + 4 is key 2t + 1 (elements
+    // 1 and 3), and B's rows t and t + 4 are read from V's rows 2t and
+    // 2t + 1 to match. The sum over keys is the same.
+    uint32_t phi[NS][4], plo[NS][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = pt[(ty + 16 * i) * (kBK + 1) + kk];
+    for (int n = 0; n < NS; ++n) {
+      float e4[4];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = vt[kk * D + tx + kThreadsX * c];
+      for (int e = 0; e < 4; ++e) e4[e] = expf(s[n][e] - mu[e >> 1]);
+      l[0] += e4[0] + e4[1];
+      l[1] += e4[2] + e4[3];
+      split_tf32(e4[0], phi[n][0], plo[n][0]);
+      split_tf32(e4[2], phi[n][1], plo[n][1]);
+      split_tf32(e4[1], phi[n][2], plo[n][2]);
+      split_tf32(e4[3], phi[n][3], plo[n][3]);
+    }
+
+    // O += P V: for each n8 fragment of O, the tile's k8 slabs go into a
+    // fresh d, added to O by FADD.
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
+    for (int j = 0; j < NO; ++j) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+      for (int n = 0; n < NS; ++n) {
+        const float* vb = vs + (8 * n + 2 * t) * P + 8 * j + g;
+        uint32_t vhi[2], vlo[2];
+        split_tf32(vb[0], vhi[0], vlo[0]);
+        split_tf32(vb[P], vhi[1], vlo[1]);
+        mma_tf32(d, plo[n], vhi);
+        mma_tf32(d, phi[n], vlo);
+        mma_tf32(d, phi[n], vhi);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_acc[j][e] += d[e];
     }
   }
+  cp_async_wait_all();
 
+  // Epilogue: O / l, 0 where l == 0; o_acc[j][2 r + e] is row wrow0 + g + 8 r,
+  // column 8 j + 2 t + e.
+  float* op = o + bi * p.ob + hi * p.oh;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= rows) continue;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = wrow0 + g + 8 * r;
+    if (row >= p.sq) continue;
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
-    for (int c = 0; c < DC; ++c) op[(row0 + r) * p.os + tx + kThreadsX * c] = acc[i][c] / l_safe;
+    for (int j = 0; j < NO; ++j) {
+      *reinterpret_cast<float2*>(op + row * p.os + 8 * j + 2 * t) =
+          make_float2(o_acc[j][2 * r] / l_safe, o_acc[j][2 * r + 1] / l_safe);
+    }
   }
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int b, const Params& p,
                cudaStream_t stream) {
-  constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
+  constexpr int smem = F32Geometry<D>::kSmem;
   auto kernel = flash_f32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.sq + kBQ - 1) / kBQ, b * p.h);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                           static_cast<const float*>(v), static_cast<float*>(o), p);
+  const dim3 grid(b * p.h, (p.sq + kF32Rows - 1) / kF32Rows);
+  kernel<<<grid, kF32Threads, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                              static_cast<const float*>(v), static_cast<float*>(o), p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -509,17 +671,9 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[
   if constexpr (D == 32) wgmma_rs_n32(d, a, db);
 }
 
-// The kv tiles [begin, end) that query rows r_lo..r_hi (inclusive) can see.
-struct TileRange {
-  int begin, end;
-};
+// The 128-key tiles that query rows r_lo..r_hi (inclusive) can see.
 __device__ __forceinline__ TileRange live_tiles(const Params& p, int r_lo, int r_hi) {
-  if (r_hi < r_lo) return {0, 0};
-  int kv_begin = 0, kv_end = p.skv;
-  if (p.causal) kv_end = min(kv_end, r_hi + p.q_offset + 1);
-  if (p.has_window) kv_begin = max(kv_begin, r_lo + p.q_offset - p.window + 1);
-  if (kv_end <= kv_begin) return {0, 0};
-  return {kv_begin / kTile, (kv_end + kTile - 1) / kTile};
+  return kv_tiles<kTile>(p, r_lo, r_hi);
 }
 
 template <int D>

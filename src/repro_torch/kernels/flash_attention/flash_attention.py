@@ -3,14 +3,16 @@
 Replaces the reference's Pallas TPU kernel
 ``src/repro/kernels/flash_attention/flash_attention.py:103
 flash_attention_kernel``. ``csrc/flash_attention.cu`` holds two kernels,
-chosen by dtype: in bf16 one CTA per (batch * head, 128-query tile) runs both
-products on the tensor cores (``wgmma``), with K and V brought by TMA into a
-ring of shared-memory stages that a producer warpgroup keeps filled; in f32
-one CTA per (batch * head, 64-query tile) runs them on FFMA, since f32 on
-``wgmma`` would be TF32. Both walk only the kv tiles their queries can see
-and keep the online-softmax state in f32 registers; the source note gives the
-bound and the design. This module builds the kernels, binds them with
-``ctypes`` and checks everything they do not take.
+chosen by dtype, each with one CTA per (batch * head, 128-query tile): in
+bf16 both products run on the tensor cores (``wgmma``), with K and V brought
+by TMA into a ring of shared-memory stages that a producer warpgroup keeps
+filled; in f32 both run on the tensor cores as 3xTF32 (``mma.sync``, each
+f32 operand split into two TF32 parts, three TF32 products per product), with
+K and V brought by ``cp.async`` into a 2-stage ring. Both walk only the kv
+tiles their queries can see and keep the online-softmax state in f32
+registers; the source note gives the bound and the design. This module builds
+the kernels, binds them with ``ctypes`` and checks everything they do not
+take.
 
 Two layouts, one kernel: the reference's head-flattened ``[bh, s, d]`` and
 the model layout ``q [b, sq, h, d]``, ``k, v [b, skv, kv_heads, d]``, where
@@ -19,7 +21,7 @@ query head ``i`` reads kv head ``i // (h // kv_heads)`` (the mapping of
 
 ``block_q`` / ``block_k`` keep the reference's contract (``min(block, seq)``
 and ``ValueError`` unless they divide the sequences); the CUDA kernels' own
-tiles are 128 x 128 (bf16) and 64 x 64 (f32), since the reference's
+tiles are 128 x 128 (bf16) and 128 x 32 (f32), since the reference's
 128 x 512 blocks do not fit a CTA at ``d = 128``. The tile changes only the
 order of the sums.
 """
@@ -45,7 +47,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
-_TILE_BF16 = 128  # query rows of a bf16 CTA: the bf16 grid's y extent is ceil(sq / 128)
+_TILE_Q = 128  # query rows of a CTA (both kernels): the grid's y extent is ceil(sq / 128)
 # The C entry point's own error codes (csrc/flash_attention.cu, its note's end).
 _ERRORS = {-1: "head dim not instantiated", -2: "dtype not taken",
            -3: "a TMA tensor map could not be encoded",
@@ -98,6 +100,16 @@ def check_tma_layout(shape, strides, data_ptr: int, element_size: int) -> None:
                              f"got {tuple(strides)} elements of {element_size} bytes")
 
 
+def check_copy_alignment(data_ptr: int) -> None:
+    """Raise ``ValueError`` unless the f32 kernel's 16-byte ``cp.async``
+    copies can read a contiguous tensor at this address (its rows, ``d`` of
+    32, 64 or 128 floats, are then 16-byte multiples). Nothing is copied to
+    make a tensor fit."""
+    if data_ptr % 16:
+        raise ValueError(f"the f32 kernel's 16-byte copies need a 16-byte-aligned base; this "
+                         f"tensor starts {data_ptr % 16} bytes past a 16-byte boundary (a view at an offset?)")
+
+
 def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
     """(b, h, s) strides of a contiguous [b, s, h, d] tensor; an extent of 1
     takes the stride a contiguous tensor would have (torch leaves it free,
@@ -135,7 +147,8 @@ def flash_attention_kernel(
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version :func:`~repro_torch.kernels.flash_attention.ref.flash_attention_plain`.
-    ``flash_attention_kernel.launches`` counts kernel launches.
+    ``flash_attention_kernel.launches`` counts kernel launches, and
+    ``launches_by_dtype`` splits them between the f32 and the bf16 kernel.
     """
     if q.dim() not in (3, 4) or k.dim() != q.dim() or v.shape != k.shape:
         raise ValueError(f"need q, k, v all [bh, s, d] or all [b, s, h, d], got "
@@ -166,13 +179,14 @@ def flash_attention_kernel(
         raise ValueError(f"q, k, v must lie on one CUDA device, got {q.device}, {k.device}, {v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the flash-attention kernel takes contiguous q, k, v")
-    if b * h > _MAX_GRID_Y:
-        raise ValueError(f"b * h = {b * h} exceeds the grid's {_MAX_GRID_Y}")
+    if -(-sq // _TILE_Q) > _MAX_GRID_Y:
+        raise ValueError(f"sq = {sq} needs more than {_MAX_GRID_Y} query tiles")
     if q.dtype == torch.bfloat16:
-        if -(-sq // _TILE_BF16) > _MAX_GRID_Y:
-            raise ValueError(f"sq = {sq} needs more than {_MAX_GRID_Y} query tiles")
         for x in (q4, k4, v4):
             check_tma_layout(x.shape, x.stride(), x.data_ptr(), x.element_size())
+    else:
+        for x in (q, k, v):
+            check_copy_alignment(x.data_ptr())
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     o4 = o if model_layout else o.unsqueeze(2)
     if o.numel() == 0:
@@ -194,7 +208,14 @@ def flash_attention_kernel(
         raise RuntimeError(f"flash-attention kernel launch failed: error {err} ({what}) for "
                            f"q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}")
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.launches_by_dtype[str(q.dtype).split(".")[1]] += 1
     return o
 
 
-flash_attention_kernel.launches = 0
+def reset_counts() -> None:
+    """Set the kernel's launch counters to 0."""
+    flash_attention_kernel.launches = 0
+    flash_attention_kernel.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+
+
+reset_counts()

@@ -18,7 +18,8 @@
 //   and misses the reference's f32 tolerance 2e-4 * (1 + |p|) about 6x at
 //   1000^3. So each operand x is split in registers, after its fragment is
 //   read from shared memory, into hi = rna(x) and lo = rna(x - hi), rna
-//   being cvt.rna.tf32.f32's rounding (to_tf32 below), and each k8 step
+//   being cvt.rna.tf32.f32's rounding (round_tf32 below; hi's takes a
+//   NaN guard, to_tf32), and each k8 step
 //   issues three mma.m16n8k8.tf32 into one fragment: a_lo*b_hi, a_hi*b_lo,
 //   then a_hi*b_hi (a_lo*b_lo is below f32's last bit). Both
 //   roundings are explicit: the tensor core is not trusted to ignore low
@@ -188,19 +189,35 @@ __device__ __forceinline__ void load_tile(T* s, const T* __restrict__ g, int64_t
 // ------------------------------------------------------- tensor cores --
 // cvt.rna.tf32.f32's rounding, written out: to nearest, ties away from zero,
 // at 10 mantissa bits, the 13 bits below cleared. sm_90 has no TF32
-// conversion instruction; ptxas expands cvt.rna into this add and mask plus
-// an inf/NaN guard (four instructions), which 3xTF32 cannot use: an
-// infinite operand gives NaN through the cross terms whatever the rounding.
-// Equal to cvt.rna for every finite x (tests/test_torch_matmul.py emulates
-// both the same way).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
+// conversion instruction. Equal to cvt.rna for every finite x
+// (tests/test_torch_matmul.py emulates both the same way).
+__device__ __forceinline__ uint32_t round_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x = hi + lo to about 22 bits, both exact TF32 values.
+// round_tf32 with the NaN guard: an x whose exponent is all ones (inf or
+// NaN) passes as it is; the float compare tests that in one instruction,
+// where a test of the bits takes two. Without it the add carries a NaN
+// with its top mantissa bits set (CUDA's canonical 0x7fffffff, what 0/0
+// gives on the device) into the sign bit or out of bit 31, and the mask
+// leaves +-0: the NaN vanished from the product.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  const uint32_t bits = __float_as_uint(x);
+  if (!(fabsf(x) < __uint_as_float(0x7f800000u))) return bits;  // inf or NaN
+  return round_tf32(x);
+}
+
+// x = hi + lo to about 22 bits, both exact TF32 values. Only hi takes the
+// guard, so a split pays for one: for an inf or NaN x, x - hi is the
+// device's canonical NaN, which round_tf32 turns into -0, so hi = x, lo = 0
+// and a NaN reaches the sum through hi. An infinite operand still gives NaN
+// through a cross term where the other operand's lo is 0, where f32 gives
+// +-inf; a finite |x| within 2^-11 of FLT_MAX (from 0x7f7ff000 up) rounds hi
+// to inf and lo to -inf, so it too gives NaN; and a NaN whose payload lies
+// only in its 13 low bits is read by the tensor core as inf.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
+  lo = round_tf32(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],

@@ -211,14 +211,24 @@ __device__ __forceinline__ void load_tile(float* s, const float* g, int64_t ld, 
 // ------------------------------------------------------- tensor cores --
 // cvt.rna.tf32.f32's rounding, written out (as in gemm.cu): to nearest,
 // ties away from zero, at 10 mantissa bits, the 13 bits below cleared.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
+__device__ __forceinline__ uint32_t round_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x = hi + lo to about 22 bits, both exact TF32 values.
+// round_tf32 with the NaN guard: an x whose exponent is all ones (inf or
+// NaN) passes as it is, so a NaN stays a NaN through the tensor core
+// (gemm.cu's note says why).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  const uint32_t bits = __float_as_uint(x);
+  if (!(fabsf(x) < __uint_as_float(0x7f800000u))) return bits;  // inf or NaN
+  return round_tf32(x);
+}
+
+// x = hi + lo to about 22 bits, both exact TF32 values; for an inf or NaN x,
+// hi = x and lo = 0 (gemm.cu's split, guarded the same way).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
+  lo = round_tf32(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],

@@ -246,3 +246,152 @@ def test_strides_of_unit_extents_are_canonical():
     assert odd.is_contiguous()
     assert fmod._strides(odd) == (64 * 32, 32, 32)
     fmod.check_tma_layout(odd.shape, odd.stride(), 1024, 2)
+
+
+# ---------------------------------------------- the f32 kernel's design ----
+
+def _split_trunc(x):
+    """flash_attention.cu's split_tf32: hi = x with its 13 low mantissa bits
+    cleared, lo = x - hi exactly (float32)."""
+    x = np.asarray(x, np.float32)
+    hi = (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    with np.errstate(invalid="ignore"):
+        return hi, x - hi
+
+
+def _read(x):
+    """An operand as the tensor core reads it: its 13 low bits ignored."""
+    return (np.asarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _product(a, b, terms):
+    """a @ b as the kernel's mma.sync steps compute it, in float64 after
+    the tensor core's operand read: 3 terms a_lo b_hi + a_hi b_lo + a_hi b_hi,
+    1 term a_hi b_hi."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split_trunc(a), _split_trunc(b)
+    a_hi, a_lo, b_hi, b_lo = (_read(x).astype(np.float64) for x in (a_hi, a_lo, b_hi, b_lo))
+    if terms == 1:
+        return a_hi @ b_hi
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _causal_attention(q, k, v, qk_terms, pv_terms):
+    """Causal attention with Q K^T and P V as the given TF32 products and
+    the softmax in float64 (p rounded to float32, as the kernel holds it)."""
+    s = _product(q, k.T, qk_terms) / np.sqrt(q.shape[1])
+    s = np.where(np.tril(np.ones(s.shape, bool)), s, -np.inf)
+    p = np.exp(s - s.max(1, keepdims=True))
+    return _product(p.astype(np.float32), v, pv_terms) / p.sum(1, keepdims=True)
+
+
+def test_3xtf32_attention_holds_the_f32_tolerance_and_1xtf32_qk_does_not():
+    """The design's premise at s 512, d 128, q at 4x unit scale (chip_smoke's
+    ops path), causal, against float64 attention: both products as the
+    kernel's 3xTF32 use under 0.01 of 2e-3 * (1 + |o|); Q K^T as one TF32
+    product uses more than all of it (the planted fault 'Q K^T at 1xTF32');
+    P V as one TF32 product stays under it, which is why that fault is
+    recorded, not required."""
+    rng = np.random.default_rng(16)
+    q = (rng.standard_normal((512, 128)) * 4).astype(np.float32)
+    k, v = (rng.standard_normal((512, 128)).astype(np.float32) for _ in range(2))
+    s = q.astype(np.float64) @ k.T.astype(np.float64) / np.sqrt(128)
+    s = np.where(np.tril(np.ones(s.shape, bool)), s, -np.inf)
+    p = np.exp(s - s.max(1, keepdims=True))
+    exact = p @ v.astype(np.float64) / p.sum(1, keepdims=True)
+
+    def share(qk, pv):
+        out = _causal_attention(q, k, v, qk, pv)
+        return float((np.abs(out - exact) / (2e-3 * (1 + np.abs(exact)))).max())
+
+    assert share(3, 3) < 0.01
+    assert share(1, 3) > 1.0
+    assert 0.0 < share(3, 1) < 1.0
+
+
+@pytest.mark.parametrize("pattern", [0x7FC00000, 0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001, 0x7F800000, 0x7F7FF000])
+def test_truncating_split_is_nan_safe(pattern):
+    """The f32 kernel's split cannot carry into the exponent: every NaN
+    (CUDA's canonical 0x7fffffff, its negative, one with only a low
+    mantissa bit set, which the tensor core reads as inf) gives a NaN
+    product through lo; an inf gives NaN as in gemm.cu; a finite value next
+    to FLT_MAX stays finite (gemm.cu's rounding makes it inf)."""
+    x = np.array([pattern], np.uint32).view(np.float32)
+    hi, lo = _split_trunc(x)
+    with np.errstate(invalid="ignore", over="ignore"):
+        product = _product(x, np.float32([[0.75]]), 3)
+    if np.isnan(x).all():
+        assert np.isnan(lo).all() and np.isnan(product).all()
+    elif np.isinf(x).all():
+        assert (hi == x).all() and np.isnan(lo).all()
+    else:
+        assert np.isfinite(hi).all() and np.isfinite(lo).all() and hi + lo == x
+
+
+def test_p_as_a_fragment_by_the_key_permutation():
+    """O += P V with P taken from the S fragment in registers: lane 4g + t
+    holds S's C elements (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1); the
+    kernel passes them as A elements (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+    and reads B's rows t and t+4 from V's rows 2t and 2t+1. Rebuilt from
+    those index maps, one m16n8k8 product is P V."""
+    rng = np.random.default_rng(0)
+    p, v = rng.standard_normal((16, 8)), rng.standard_normal((8, 8))
+    a, b = np.full((16, 8), np.nan), np.full((8, 8), np.nan)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        c = [p[g, 2 * t], p[g, 2 * t + 1], p[g + 8, 2 * t], p[g + 8, 2 * t + 1]]
+        # kernel: split_tf32(e4[0] -> [0], e4[2] -> [1], e4[1] -> [2], e4[3] -> [3])
+        a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4] = c[0], c[2], c[1], c[3]
+        # kernel: vb = vs + (8 n + 2 t) * P + 8 j + g; b0 = vb[0], b1 = vb[P]
+        b[t, g], b[t + 4, g] = v[2 * t, g], v[2 * t + 1, g]
+    np.testing.assert_allclose(a @ b, p @ v, rtol=1e-12, atol=1e-12)
+    src = fmod.SOURCE.read_text()
+    for text in ("split_tf32(e4[0], phi[n][0], plo[n][0]);", "split_tf32(e4[2], phi[n][1], plo[n][1]);",
+                 "split_tf32(e4[1], phi[n][2], plo[n][2]);", "split_tf32(e4[3], phi[n][3], plo[n][3]);",
+                 "const float* vb = vs + (8 * n + 2 * t) * P + 8 * j + g;",
+                 "split_tf32(vb[0], vhi[0], vlo[0]);", "split_tf32(vb[P], vhi[1], vlo[1]);"):
+        assert src.count(text) == 1, text
+
+
+@pytest.mark.parametrize("index", range(4))
+def test_planted_f32_faults_edit_the_source_exactly_once(index):
+    """Every planted fault of the f32 power check names a text that occurs
+    exactly once in flash_attention.cu, and the required ones are the three
+    the f32 power check needs (P V at 1xTF32 is recorded)."""
+    faults = _chip_smoke().FLASH_F32_FAULTS
+    assert [name for name, _, _, must in faults if must] == [
+        "Q K^T at 1xTF32", "last live kv tile skipped", "O not rescaled by alpha"]
+    assert [name for name, _, _, must in faults if not must] == ["P V at 1xTF32"]
+    name, old, new, _ = faults[index]
+    src = fmod.SOURCE.read_text()
+    assert src.count(old) == 1, name
+    assert new != old and src.replace(old, new).count(old) == 0
+
+
+def test_f32_kernel_is_instantiated_for_exactly_the_head_dims():
+    """Each head dim of REPRO_HEAD_DIM (== HEAD_DIMS) launches the f32
+    kernel through launch_f32<D>, and its shared memory (128 query rows and
+    two stages of 32-key K and V tiles, rows padded to D + 4 floats) fits a
+    CTA."""
+    src = fmod.SOURCE.read_text()
+    assert "if (dtype == kF32) return launch_f32<D>(q, k, v, o, b, p, s);" in src
+    dims = {int(x) for x in re.findall(r"^\s*REPRO_HEAD_DIM\((\d+)\)\s*$", src, re.M)}
+    assert dims == set(fmod.HEAD_DIMS)
+    assert "constexpr int kF32Rows = 128;" in src and "constexpr int kF32Keys = 32;" in src
+    assert "constexpr int kF32Stages = 2;" in src
+    for d in fmod.HEAD_DIMS:
+        assert 4 * (128 * (d + 4) + 2 * 2 * 32 * (d + 4)) <= 227 * 1024, d
+
+
+def test_f32_copy_alignment_check():
+    """The f32 kernel's 16-byte copies need a 16-byte-aligned base; a
+    contiguous view one float into its storage is refused, nothing copied."""
+    fmod.check_copy_alignment(1024)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fmod.check_copy_alignment(1028)
+
+
+def test_launch_counters_reset_per_dtype():
+    fmod.flash_attention_kernel.launches_by_dtype["float32"] += 1
+    fmod.reset_counts()
+    assert fmod.flash_attention_kernel.launches == 0
+    assert fmod.flash_attention_kernel.launches_by_dtype == {"float32": 0, "bfloat16": 0}

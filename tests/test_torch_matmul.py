@@ -164,11 +164,31 @@ def test_chain_matmul_use_kernel_false_matches_torch_matmul():
 
 # ------------------------------------------------ 3xTF32, on the CPU ----
 
-def _tf32(x):
+def _tf32(x, guard=True):
     """``cvt.rna.tf32.f32`` (and the kernel's ``to_tf32``): to nearest, ties
-    away from zero, at 10 mantissa bits; the 13 bits below cleared."""
+    away from zero, at 10 mantissa bits; the 13 bits below cleared. With
+    the guard an x whose exponent is all ones (inf, NaN) passes as it is;
+    ``guard=False`` is the split before the guard."""
     bits = np.asarray(x, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    rounded = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    if guard:
+        rounded = np.where(bits & np.uint32(0x7F800000) == np.uint32(0x7F800000), bits, rounded)
+    return rounded.astype(np.uint32).view(np.float32)
+
+
+def _split(x, guard=True):
+    """The kernel's split_tf32: hi = rna(x) (with the guard), lo = rna(x - hi)
+    (without it: for an inf or NaN x, x - hi is NaN and lo comes out 0)."""
+    x = np.asarray(x, np.float32)
+    hi = _tf32(x, guard)
+    with np.errstate(invalid="ignore"):
+        lo = np.where(np.isnan(x - hi), np.float32(0.0), _tf32(x - hi, guard=False))
+    return hi, lo.astype(np.float32)
+
+
+def _read(x):
+    """An operand as the tensor core reads it: its 13 low bits ignored."""
+    return (np.asarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
 def _tf32_products(a, b):
@@ -216,6 +236,64 @@ def test_tf32_rounding_splits_exactly():
     assert np.all(np.abs((hi.astype(np.float64) + lo) - x) <= 2.0 ** -22 * np.abs(x))
     tie = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11)], np.float32)
     assert list(_tf32(tie)) == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
+
+
+# The split's NaN guard. Bit patterns: torch's host-made NaN, CUDA's
+# canonical NaN (what 0/0 gives on the device) and its negative, +-inf, and
+# a finite value within 2^-11 of FLT_MAX.
+SPECIAL = {"0x7fc00000": 0x7FC00000, "0x7fffffff": 0x7FFFFFFF, "0xffffffff": 0xFFFFFFFF,
+           "+inf": 0x7F800000, "-inf": 0xFF800000, "0x7f7ff000": 0x7F7FF000}
+
+
+def _bits(pattern):
+    return np.array([pattern], np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("name", list(SPECIAL))
+def test_guarded_split_keeps_a_nan_a_nan(name):
+    """Through the guarded split a NaN gives hi = x and lo = 0, so it stays
+    NaN in hi + lo and in a 3xTF32 product as the tensor core reads it (13
+    low bits ignored); without the guard CUDA's canonical NaN splits to
+    hi = lo = -0 or +0 and vanishes. An inf gives hi = inf and lo = 0 (a
+    product with an exactly TF32 operand, whose lo is 0, is then NaN: the
+    divergence gemm.cu's note accepts); 0x7f7ff000 rounds hi to inf and lo
+    to -inf, recorded here as it is."""
+    x = _bits(SPECIAL[name])
+    hi, lo = _split(x)
+    with np.errstate(invalid="ignore", over="ignore"):
+        whole = hi.astype(np.float64) + lo
+        b = np.float32(0.75)
+        product = _read(lo) * np.float64(b) + _read(hi) * 0.0 + _read(hi) * np.float64(b)
+    if np.isnan(x).all():
+        assert np.isnan(whole).all() and np.isnan(product).all()
+        hi_u, lo_u = _split(x, guard=False)
+        vanished = SPECIAL[name] in (0x7FFFFFFF, 0xFFFFFFFF)
+        assert (hi_u == 0).all() == vanished and (lo_u == 0).all()
+    elif np.isinf(x).all():
+        assert (hi == x).all() and (lo == 0).all() and np.isnan(product).all()
+    else:  # within 2^-11 of FLT_MAX
+        assert np.isposinf(hi).all() and np.isneginf(lo).all() and np.isnan(whole).all()
+
+
+def test_guarded_split_equals_the_unguarded_one_on_finite_values():
+    """The guard changes nothing for a finite x below 0x7f7ff000, so the
+    3xTF32 accuracy tests above hold for the guarded kernel unchanged."""
+    x = np.random.default_rng(1).standard_normal(100_000).astype(np.float32) * 1e3
+    x = np.concatenate([x, _bits(0x7F7FEFFF), _bits(0x00000001), np.float32([0.0, -0.0])])
+    for guard in (True, False):
+        assert np.array_equal(_split(x, guard)[0].view(np.uint32), _split(x)[0].view(np.uint32))
+        assert np.array_equal(_split(x, guard)[1].view(np.uint32), _split(x)[1].view(np.uint32))
+
+
+def test_kernel_to_tf32_carries_the_nan_guard():
+    """gemm.cu's to_tf32 passes an x whose exponent is all ones as it is,
+    before the rounding add, and chip_smoke.py's TF32_GUARD names that line
+    (the build without it that phases 3 and 4 measure)."""
+    src = kmod.SOURCE.read_text()
+    body = re.search(r"uint32_t to_tf32\(float x\) \{(.*?)\n\}", src, re.S).group(1)
+    assert "if (!(fabsf(x) < __uint_as_float(0x7f800000u))) return bits;" in body
+    assert body.index("return bits;") < body.index("return round_tf32(x);")
+    assert src.count(_chip_smoke().TF32_GUARD) == 1
 
 
 # ------------------------------------------------------ copy widths ----

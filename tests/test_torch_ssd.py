@@ -206,10 +206,19 @@ def test_kernel_source_instantiates_exactly_the_head_dims():
 
 # ------------------------------------- the kernel's split and its faults ----
 
-def _tf32(x):
+def _tf32(x, guard=True):
     """cvt.rna.tf32.f32's rounding as csrc/ssd.cu writes it out: add 2^12 to
-    the bits and clear the 13 below the 10-bit mantissa."""
-    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    the bits and clear the 13 below the 10-bit mantissa; with the guard
+    (to_tf32, hi's rounding) an x whose exponent is all ones (inf, NaN)
+    passes as it is, without it (round_tf32, lo's) the canonical NaN that
+    x - hi then is comes out -0."""
+    bits = x.view(torch.int32)
+    rounded = (bits + 0x1000) & -0x2000
+    if guard:
+        rounded = torch.where((bits & 0x7F800000) == 0x7F800000, bits, rounded)
+    else:
+        rounded = torch.where(torch.isnan(x), torch.full_like(bits, -0x80000000), rounded)
+    return rounded.view(torch.float32)
 
 
 def _products(a, b, terms):
@@ -219,7 +228,7 @@ def _products(a, b, terms):
     a_hi, b_hi = _tf32(a), _tf32(b)
     if terms == 1:
         return a_hi @ b_hi
-    return a_hi @ b_hi + a_hi @ _tf32(b - b_hi) + _tf32(a - a_hi) @ b_hi
+    return a_hi @ b_hi + a_hi @ _tf32(b - b_hi, False) + _tf32(a - a_hi, False) @ b_hi
 
 
 def _split_scan(xbar, logda, bm, cm, chunk, terms):
@@ -269,6 +278,35 @@ def test_split_algebra_holds_the_tolerance_only_as_3xtf32():
             shares[terms] = max(shares[terms], share)
     assert shares[3] < 0.2, shares
     assert shares[1] > 10.0, shares
+
+
+@pytest.mark.parametrize("pattern", [0x7FC00000, 0x7FFFFFFF, 0xFFFFFFFF, 0x7F800000, 0xFF800000])
+def test_guarded_split_keeps_a_nan_a_nan(pattern):
+    """ssd.cu's copy of the guarded split: a NaN (host-made, CUDA's
+    canonical one, its negative) stays NaN in hi and in a 3xTF32 product,
+    an inf stays inf in hi; a C with one NaN makes that row of C B^T NaN and
+    no other."""
+    x = torch.tensor([pattern & 0xFFFFFFFF], dtype=torch.int64).to(torch.int32).view(torch.float32)
+    hi = _tf32(x)
+    assert torch.equal(hi.view(torch.int32), x.view(torch.int32))
+    c = torch.randn(8, 16, generator=torch.Generator().manual_seed(0))
+    b = torch.randn(8, 16, generator=torch.Generator().manual_seed(1))
+    c[3, 5] = x[0]
+    scores = _products(c, b.T.contiguous(), 3)
+    if torch.isnan(x).all():
+        assert torch.equal(scores.isnan().any(1), torch.arange(8) == 3)
+    else:
+        assert not torch.isfinite(scores[3]).all() and torch.isfinite(scores[torch.arange(8) != 3]).all()
+
+
+def test_kernel_to_tf32_carries_the_nan_guard():
+    """ssd.cu's to_tf32 passes an x whose exponent is all ones as it is,
+    before the rounding add, in the text chip_smoke.py's TF32_GUARD names."""
+    src = smod.SOURCE.read_text()
+    body = re.search(r"uint32_t to_tf32\(float x\) \{(.*?)\n\}", src, re.S).group(1)
+    assert "if (!(fabsf(x) < __uint_as_float(0x7f800000u))) return bits;" in body
+    assert body.index("return bits;") < body.index("return round_tf32(x);")
+    assert src.count(_chip_smoke().TF32_GUARD) == 1
 
 
 def _chip_smoke():
