@@ -55,7 +55,18 @@ Phases (any failure exits non-zero and prints no result):
    (queued behind a device sleep, so that the host's enqueue cost stays
    out) beside the FFMA, 3xTF32 and byte bounds, and the NaN guard's cost;
 10. the ``attention_impl`` and ``ssd_chunk`` sites, each variant first held
-   against ``attention_reference`` / ``ssd_reference``, through ``rank_site``.
+   against ``attention_reference`` / ``ssd_reference``, through ``rank_site``;
+11. the census on the card, through ``python -m repro_torch``: the default
+   grid (120 chains, gram/distributive/solve/bilinear at five sizes; 220
+   instances) by ``census run`` on wall clock, and the GPU kernel lane
+   (``kernel_variants`` with ``--kernel-native``, the hand GEMM's tiles
+   first held against ``matmul_ref``) by ``census plan`` and ``queue
+   work``, each merged and reported; then both grids again in this process
+   through ``run_shard(..., device="cuda")`` with the GEMM's launches
+   counted, every store checked (checksums, one record per instance, the
+   reference's metadata, inner repeats), a cost-model census on this host
+   against the repo's golden store, and the verdicts of the two passes
+   compared (recorded, not required to agree).
 
 Each kernel's launch counter is set to 0 just before each path and read just
 after it. The next-to-last line is a JSON object with the kernels' numbers,
@@ -69,6 +80,7 @@ import importlib.util
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -88,6 +100,13 @@ TIMED_SHAPES = ((1000, 1000, 1000), (1024, 1024, 1024), (4096, 4096, 4096))
 BF16_TIMED_SHAPES = ((1000, 1000, 1000), (4096, 4096, 4096))
 HOST_LAUNCHES = 1000  # launches of a 64^3 GEMM timed on the host clock (phase 4)
 INSTANCES = ("anomaly_331", "fig3_75", "instance_A", "instance_B")
+# Phase 11's kernel lane (the README's GPU lane): every other flag at its
+# default; the default grid is `census run` with every grid flag at its default.
+KERNEL_LANE = ("--chains", "0", "--families", "kernel_variants", "--kernel-native",
+               "--kernel-sites", "matmul,attention,ssd", "--sizes", "256,512,1024",
+               "--per-size", "4", "--shards", "8", "--backend", "wall_clock")
+KERNEL_LANE_SIZES = (256, 512, 1024)
+CENSUS_TIMEOUT = 420  # seconds for one census command
 TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
 
 # Planted faults in the GEMM that the 1000^3 f32 comparison at the 64^3 tile
@@ -1039,6 +1058,244 @@ def phase_sites(torch, rank_site, attention_site, ssd_chunk_site):
     return out
 
 
+def census_cli(args, device, timeout=CENSUS_TIMEOUT):
+    """``python -m repro_torch <args> --device`` from the checkout, the way a
+    user runs it; returns (seconds, stdout) and stops the script on a
+    non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    extra = ["--device", device] if args[:2] in (["census", "run"], ["queue", "work"]) else []
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch", *args, *extra], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        log(out.stdout[-4000:])
+        log(out.stderr[-4000:])
+        sys.exit(f"chip_smoke: `python -m repro_torch {' '.join(args + extra)}` exited {out.returncode}")
+    return seconds, out.stdout
+
+
+def family_timer(sweep, family):
+    """Per-family seconds of an in-process census: each family's workload
+    builds and its timer's measurements (timed outside the measured region:
+    ``WallClockTimer.measure_many`` is wrapped, the workloads are not). Returns
+    the seconds by family and a function that undoes the wrapping."""
+    secs = {}
+    owner = {}
+    patched = []
+    for name in family.family_names():
+        fam = family.get_family(name)
+
+        def entry(inst, _orig=fam.entry, _name=name):
+            flops, meta, build = _orig(inst)
+
+            def timed_build(device):
+                t0 = time.perf_counter()
+                table = build(device)
+                secs[_name] = secs.get(_name, 0.0) + time.perf_counter() - t0
+                owner[id(table)] = _name
+                return table
+
+            return flops, meta, timed_build
+
+        fam.entry = entry
+        patched.append(fam)
+    base = sweep.WallClockTimer
+
+    class Timed(base):
+        def __init__(self, workloads, *a, **kw):
+            self.family = owner.pop(id(workloads), "?")
+            super().__init__(workloads, *a, **kw)
+
+        def measure_many(self, name, m):  # measure() calls it as well
+            t0 = time.perf_counter()
+            try:
+                return super().measure_many(name, m)
+            finally:
+                secs[self.family] = secs.get(self.family, 0.0) + time.perf_counter() - t0
+
+    sweep.WallClockTimer = Timed
+
+    def undo():
+        sweep.WallClockTimer = base
+        for fam in patched:
+            del fam.entry
+
+    return secs, undo
+
+
+def check_store(sweep, spec, root, what):
+    """The merged store of a census on the card, by the repo's own means:
+    every line passes its checksum, one record per instance of the grid,
+    each record's metadata (FLOPs, kernels, size, dims, params) is the
+    instance's own, every algorithm carries its timer's inner repeats, and
+    every mean rank is finite. Returns the records."""
+    lines = (Path(root) / "merged.jsonl").read_bytes().splitlines(keepends=True)
+    records = []
+    for line in lines:
+        rec, status = sweep.parse_record_line(line)
+        if status != sweep.LINE_OK:
+            sys.exit(f"chip_smoke: {what}: a merged line is {status}")
+        records.append(rec)
+    grid = spec.expand()
+    if [r["uid"] for r in records] != [i.uid for i in grid]:
+        sys.exit(f"chip_smoke: {what}: {len(records)} records for {len(grid)} instances")
+    for rec, inst in zip(records, grid):
+        flops, meta, _ = sweep.instance_entry(inst)
+        want = {"flops": {k: float(v) for k, v in flops.items()}, "kernels": meta["kernels"],
+                "size": meta["size"], "dims": meta["dims"], "params": inst.params,
+                "backend": "wall_clock", "family": inst.family}
+        bad = [k for k, v in want.items() if rec[k] != v]
+        if bad:
+            sys.exit(f"chip_smoke: {what}: {inst.uid} differs from its instance in {bad}")
+        if set(rec.get("inner_repeats", {})) != set(flops):
+            sys.exit(f"chip_smoke: {what}: {inst.uid} lacks inner repeats for some algorithms")
+        if not all(math.isfinite(v) for v in rec["mean_ranks"].values()):
+            sys.exit(f"chip_smoke: {what}: {inst.uid} has a mean rank that is not finite")
+    return records
+
+
+def by_family(records, seconds):
+    out = {}
+    for rec in records:
+        row = out.setdefault(rec["family"], {"instances": 0, "anomalies": 0})
+        row["instances"] += 1
+        row["anomalies"] += int(rec["is_anomaly"])
+    for fam, row in out.items():
+        row["anomaly_rate"] = row["anomalies"] / row["instances"]
+        if seconds is not None:
+            row["seconds"] = seconds.get(fam)
+    return out
+
+
+def verdict_changes(first, second):
+    """Instances whose verdict (anomaly or not, and its reason) differs
+    between two passes of one grid, with both verdicts."""
+    two = {r["uid"]: r for r in second}
+    out = []
+    for rec in first:
+        other = two[rec["uid"]]
+        a, b = (rec["is_anomaly"], rec["reason"]), (other["is_anomaly"], other["reason"])
+        if a != b:
+            out.append({"uid": rec["uid"], "first": rec["reason"], "second": other["reason"]})
+    return out
+
+
+def phase_census(torch, kmod, matmul_ref, launches, device="cuda", default_grid=(), lane=KERNEL_LANE,
+                 lane_sizes=KERNEL_LANE_SIZES):
+    """Phase 11: the census on the card, both grids, two passes each (see
+    the module docstring). ``default_grid`` and ``lane`` are the grid flags
+    of the two censuses (the default grid: none). Returns the phase's
+    record; the hand GEMM's launches in the in-process lane join
+    ``launches`` as ``census[kernel_variants]``."""
+    from repro_torch.core import family, sweep
+    from repro_torch.launch.report_md import census_tables
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_census_"))
+    keep = OUT.parent / "census"
+    keep.mkdir(parents=True, exist_ok=True)
+    out = {"device_tf32": {"allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+                           "float32_matmul_precision": torch.get_float32_matmul_precision()}}
+
+    # the port's cost-model census on this host against the golden store
+    golden = ROOT / "tests" / "golden" / "census_small.jsonl"
+    spec = sweep.SweepSpec(name="census", n_shards=4, backend="cost_model", max_measurements=12, families={
+        "chain": {"count": 8, "n_matrices": [3, 4], "lo": 24, "hi": 96},
+        **{f: {"sizes": [24, 40], "per_size": 2} for f in ("gram", "distributive", "solve", "bilinear")}})
+    for shard in range(spec.n_shards):
+        sweep.run_shard(spec, str(work / "golden"), shard, device=device)
+    out["golden_store_identical"] = Path(sweep.write_merged(spec, str(work / "golden"))).read_bytes() \
+        == golden.read_bytes()
+    log(f"[11 census] cost-model census against {golden.relative_to(ROOT)}: identical "
+        f"{out['golden_store_identical']}")
+    if not out["golden_store_identical"]:
+        sys.exit("chip_smoke: the port's cost-model census differs from the golden store")
+
+    # pass 1 through the CLI: (a) the default grid, (b) the kernel lane
+    passes = {"default": {}, "kernel_lane": {}}
+    d1, d2 = work / "default_cli", work / "lane_cli"
+    secs, _ = census_cli(["census", "run", "--out", str(d1), "--workers", "1", "--backend", "wall_clock",
+                          *default_grid], device)
+    census_cli(["census", "merge", "--out", str(d1)], device)
+    _, report = census_cli(["census", "report", "--out", str(d1)], device)
+    spec_a = sweep.SweepSpec.load(str(d1 / "spec.json"))
+    rec_a1 = check_store(sweep, spec_a, d1, "the default census (CLI)")
+    passes["default"]["cli"] = {"seconds": secs, "by_family": by_family(rec_a1, None),
+                                "anomalies": sum(r["is_anomaly"] for r in rec_a1), "instances": len(rec_a1)}
+    shutil.copy(d1 / "merged.jsonl", keep / "default_cli.jsonl")
+    log(f"[11 census] default grid by `census run` on wall clock: {len(rec_a1)} instances in {secs:.1f} s, "
+        f"{passes['default']['cli']['anomalies']} anomalies; by family {passes['default']['cli']['by_family']}")
+    log("    " + report.strip().replace("\n", "\n    "))
+
+    # the hand GEMM's census variants against matmul_ref before the lane runs
+    checks = Checks(torch, "a census matmul variant")
+    kv = family.get_family("kernel_variants")
+    for size in lane_sizes:
+        cfg = family._kernel_site_config("matmul", size)
+        site = kv._build_site("matmul", cfg, False, device)
+        a, b = site.make_inputs(0)
+        plain = matmul_ref(a, b)
+        for variant in site.variants:
+            checks.hold(variant.name, variant.build(a, b)(), plain, TOL["float32"],
+                        f"census matmul {size}^3 {variant.name}")
+    log(f"[11 census] kernel lane's matmul variants vs matmul_ref at {lane_sizes}: {checks.n} checks, "
+        f"max_abs_err {checks.errs}, share of the f32 tolerance {checks.used}")
+    checks.stop_if_failed("phase 11")
+    out["matmul_variants"] = {"max_abs_err": checks.errs, "tolerance_used": checks.used}
+    del a, b, plain
+
+    census_cli(["census", "plan", "--out", str(d2), *lane], device)
+    secs, _ = census_cli(["queue", "work", "--out", str(d2)], device)
+    census_cli(["census", "merge", "--out", str(d2)], device)
+    _, report = census_cli(["census", "report", "--out", str(d2)], device)
+    spec_b = sweep.SweepSpec.load(str(d2 / "spec.json"))
+    rec_b1 = check_store(sweep, spec_b, d2, "the kernel lane (CLI)")
+    passes["kernel_lane"]["cli"] = {"seconds": secs, "by_family": by_family(rec_b1, {"kernel_variants": secs}),
+                                    "anomalies": sum(r["is_anomaly"] for r in rec_b1), "instances": len(rec_b1)}
+    shutil.copy(d2 / "merged.jsonl", keep / "kernel_lane_cli.jsonl")
+    log(f"[11 census] kernel lane by `census plan` + `queue work`: {len(rec_b1)} instances in {secs:.1f} s, "
+        f"{passes['kernel_lane']['cli']['anomalies']} anomalies")
+    log("    " + report.strip().replace("\n", "\n    "))
+
+    # pass 2 in this process: the same specs through run_shard, fresh stores
+    for key, spec_, first in (("default", spec_a, rec_a1), ("kernel_lane", spec_b, rec_b1)):
+        root = work / f"{key}_in_process"
+        fam_secs, undo = family_timer(sweep, family)
+        if key == "kernel_lane":
+            reset_gemm_counts(kmod)
+        t0 = time.perf_counter()
+        try:
+            for shard in range(spec_.n_shards):
+                sweep.run_shard(spec_, str(root), shard, device=device)
+        finally:
+            undo()
+        secs = time.perf_counter() - t0
+        if key == "kernel_lane":
+            launches["census[kernel_variants]"] = kmod.matmul_kernel.launches
+        sweep.write_merged(spec_, str(root))
+        second = check_store(sweep, spec_, root, f"the {key} census (in process)")
+        census_tables(second, name=spec_.name)
+        changed = verdict_changes(first, second)
+        passes[key]["in_process"] = {
+            "seconds": secs, "by_family": by_family(second, fam_secs),
+            "anomalies": sum(r["is_anomaly"] for r in second), "instances": len(second)}
+        passes[key]["verdict_changes"] = {"count": len(changed), "instances": changed}
+        shutil.copy(root / "merged.jsonl", keep / f"{key}_in_process.jsonl")
+        log(f"[11 census] {key} in process: {len(second)} instances in {secs:.1f} s, "
+            f"{passes[key]['in_process']['anomalies']} anomalies; by family "
+            f"{passes[key]['in_process']['by_family']}; verdicts that differ from the CLI pass: {len(changed)}")
+    if not launches.get("census[kernel_variants]"):
+        sys.exit("chip_smoke: the census's kernel lane launched no GEMM kernel")
+    log(f"[11 census] GEMM kernel launches in the in-process kernel lane: {launches['census[kernel_variants]']}")
+    out.update(passes)
+    shutil.rmtree(work)
+    summary = {grid: {p_: {k_: v[k_] for k_ in ("instances", "anomalies", "seconds")}
+                      for p_, v in rows.items() if p_ != "verdict_changes"}
+               | {"verdict_changes": rows["verdict_changes"]["count"]} for grid, rows in passes.items()}
+    log("[11 census] summary " + json.dumps(summary))
+    return out
+
+
 def main():
     import torch
 
@@ -1402,6 +1659,11 @@ def main():
     fault_dir.cleanup()
     details["ssd"] = ssd
     details["sites"] = phase_sites(torch, rank_site, attention_site, ssd_chunk_site)
+    t_census = time.perf_counter()
+    details["census"] = phase_census(torch, kmod, matmul_ref, launches)
+    details["census"]["seconds"] = time.perf_counter() - t_census
+    gemm_launches["census[kernel_variants]"] = launches["census[kernel_variants]"]
+    launches_by_copy["census[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
     details["launches"] = launches
 
     # ---------------------------------------------------------- results --
@@ -1412,7 +1674,8 @@ def main():
         "route": "cuda",
         "source": "src/repro_torch/kernels/matmul/csrc/gemm.cu",
         "replaces": "src/repro/kernels/matmul/matmul.py:45",
-        "launches": launches["quickstart[hand_gemm]"] + launches["autotune[matmul_blocks]"],
+        "launches": (launches["quickstart[hand_gemm]"] + launches["autotune[matmul_blocks]"]
+                     + launches["census[kernel_variants]"]),
         "max_abs_err": max(gemm_checks.errs.values()),
         "ms": main_row["kernel_ms"][tile_key],
         "plain_ms": main_row["plain_ms"],

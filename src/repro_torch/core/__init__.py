@@ -5,9 +5,10 @@ performance classes (Sankaran & Bientinesi 2022), plus the test for FLOPs as
 a discriminant. Backend-agnostic: measurements may come from wall-clock
 timing, simulation, or a compiled-artifact cost model.
 
-A copy of the JAX package's ``repro.core`` minus the census (``sweep``),
-which a later slice of the port brings over. Only ``measure.WallClockTimer``
-differs: it checks the blocking contract with ``torch.cuda.synchronize()``.
+A copy of the JAX package's ``repro.core``, census (``sweep``) included.
+``measure.WallClockTimer`` checks the blocking contract with
+``torch.cuda.synchronize()``, and the census's wall-clock backend takes an
+explicit device (``run_shard(..., device=)``).
 """
 
 from .comparison import (
@@ -36,6 +37,16 @@ from .measure import (
     timer_to_dict,
 )
 from .session import MeasurementSession
+from .sweep import (
+    InstanceSpec,
+    ShardStore,
+    SweepSpec,
+    build_sweep_session,
+    census_summary,
+    merge_shards,
+    run_shard,
+    write_merged,
+)
 from .ranking import (
     make_measurement_comparator,
     make_table_comparator,
@@ -74,6 +85,7 @@ __all__ = [
     "ExperimentEngine",
     "FAST_MODE_QUANTILE_RANGES",
     "IterationRecord",
+    "InstanceSpec",
     "MeanRankResult",
     "MeasurementSession",
     "MeasurementStore",
@@ -86,10 +98,14 @@ __all__ = [
     "RankingResult",
     "REPORT_QUANTILE_RANGE",
     "SimulatedTimer",
+    "ShardStore",
     "Timer",
+    "SweepSpec",
     "WallClockTimer",
     "compare_measurements",
+    "build_sweep_session",
     "compare_range",
+    "census_summary",
     "convergence_norm",
     "filter_candidates",
     "first_differences",
@@ -101,13 +117,16 @@ __all__ = [
     "mean_ranks",
     "measure_and_rank",
     "min_flops_set",
+    "merge_shards",
     "quantile_window",
     "ranks_as_dict",
     "relative_flops",
     "relative_times",
+    "run_shard",
     "sort_algorithms",
     "sort_by_measurements",
     "sort_by_table",
     "timer_from_dict",
     "timer_to_dict",
+    "write_merged",
 ]

@@ -1,0 +1,102 @@
+"""The umbrella CLI: ``python -m repro_torch <surface> <verb> ...``.
+
+One entry point over the port's launch surfaces, as ``python -m repro`` is
+the reference's. Each sub-CLI keeps its own parser (registered here, never
+duplicated):
+
+    python -m repro_torch census run --out DIR --workers 4   # DiscriminantSweep
+    python -m repro_torch queue  work --out DIR              # pull-based drain
+    python -m repro_torch fsck   --out DIR [--dry-run]       # repair any store
+
+The reference's ``explain``, ``oracle`` and ``predict`` surfaces are named
+too; each says which ROADMAP item ports it and exits 2. The reference's
+legacy ``python -m repro.launch.X`` aliases have no counterpart here.
+
+Dispatch is manual (argv[0] lookup, remainder forwarded verbatim) rather
+than argparse-subparser composition: every surface's ``main(argv, prog=)``
+owns its full argparse tree, and the umbrella just rebrands ``prog`` so
+``--help`` prints the command the user actually typed.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Callable, List, Optional, Tuple
+
+
+def _census_main(argv: List[str], prog: str) -> int:
+    from repro_torch.launch.sweep import main
+
+    return main(argv, prog=prog)
+
+
+def _queue_main(argv: List[str], prog: str) -> int:
+    from repro_torch.launch.queue import main
+
+    return main(argv, prog=prog)
+
+
+def _fsck_main(argv: List[str], prog: str) -> int:
+    from repro_torch.launch.fsck import main
+
+    return main(argv, prog=prog)
+
+
+def _not_ported(surface: str) -> Callable[[List[str], str], int]:
+    def refuse(argv: List[str], prog: str) -> int:
+        from repro_torch.core.stores import not_ported
+
+        print(f"{prog}: {not_ported(surface)}", file=sys.stderr)
+        return 2
+
+    return refuse
+
+
+#: surface name -> (dispatcher, one-line help). Lazy imports keep
+#: ``python -m repro_torch --help`` free of every surface's dependency tree.
+SURFACES: "dict[str, Tuple[Callable[[List[str], str], int], str]]" = {
+    "census": (_census_main,
+               "plan/run/merge/report the FLOPs-discriminant census"),
+    "explain": (_not_ported("explain"),
+                "explain the census's anomalies (not ported yet)"),
+    "queue": (_queue_main,
+              "drain a campaign store with pull-based multi-host workers"),
+    "fsck": (_fsck_main,
+             "classify/repair/quarantine damage in any campaign store"),
+    "oracle": (_not_ported("oracle"),
+               "the ranking-as-a-service cache (not ported yet)"),
+    "predict": (_not_ported("predict"),
+                "the learned cost model (not ported yet)"),
+}
+
+
+def _usage() -> str:
+    lines = [
+        "usage: python -m repro_torch <surface> <verb> [options]",
+        "",
+        "surfaces:",
+    ]
+    for name, (_, help_line) in SURFACES.items():
+        lines.append(f"  {name:<8} {help_line}")
+    lines += [
+        "",
+        "run `python -m repro_torch <surface> --help` for that surface's verbs.",
+    ]
+    return "\n".join(lines)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(_usage())
+        return 0 if argv else 2
+    surface, rest = argv[0], argv[1:]
+    entry = SURFACES.get(surface)
+    if entry is None:
+        print(f"unknown surface {surface!r}\n\n{_usage()}", file=sys.stderr)
+        return 2
+    return entry[0](rest, f"repro_torch {surface}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -167,9 +167,9 @@ def test_wallclock_timer_accepts_synchronised_workload(monkeypatch):
 
 
 def test_port_core_exports_match_reference_minus_census():
-    census = {"InstanceSpec", "ShardStore", "SweepSpec", "build_sweep_session",
-              "census_summary", "merge_shards", "run_shard", "write_merged"}
-    assert set(port.__all__) == set(ref.__all__) - census
+    """The name is the one it had before the census was ported; the port's
+    core now exports everything the reference's does."""
+    assert set(port.__all__) == set(ref.__all__)
     assert all(hasattr(port, n) for n in port.__all__)
 
 
@@ -206,6 +206,8 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.kernels.matmul.ops\n"
         "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.ssd.ops\n"
         "import repro_torch.models.attention, repro_torch.models.mamba2\n"
+        "import repro_torch.core.sweep, repro_torch.launch.cli\n"
+        "import repro_torch.expressions.generalized\n"
         "assert not [m for m, mod in sys.modules.items()"
         " if mod is not None and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "print('ok')\n"
