@@ -29,7 +29,11 @@ Phases (any failure exits non-zero and prints no result):
    version and ``torch.matmul`` beside the bounds (3xTF32 and FFMA for f32);
    the cost of the TF32 split's NaN guard (a build without it, in turns);
    the wrapper's host cost per launch against ``torch.matmul``'s;
-5. the quickstart path on the four paper instances, on both GEMM routes;
+5. the quickstart path on the four paper instances, on both GEMM routes,
+   each with ``jit=True`` (every algorithm captured once as a CUDA graph and
+   replayed) and ``jit=False`` (eager launches): each graph's output held to
+   eager launches at 1e-4, the GEMM's counter held to 3 x its steps over
+   3 replays, single-run times and verdicts of both modes side by side;
 6. the ``matmul_blocks`` site through ``rank_site``;
 7. the flash-attention and SSD builds, with ``ptxas -v``'s report of every
    instantiation and the SASS check: every bf16 flash instantiation holds
@@ -66,7 +70,19 @@ Phases (any failure exits non-zero and prints no result):
    counted, every store checked (checksums, one record per instance, the
    reference's metadata, inner repeats), a cost-model census on this host
    against the repo's golden store, and the verdicts of the two passes
-   compared (recorded, not required to agree).
+   compared (recorded, not required to agree). The chain family's
+   algorithms run as CUDA graphs: none may outlive the in-process pass, and
+   ``torch.cuda.memory_allocated()`` is recorded before and after it;
+12. explain on the card, through ``python -m repro_torch explain``:
+   ``calibrate --backend wall_clock`` fits the card's dispatch and GEMM
+   efficiency curve (base machine: the H100 SXM sheet), then both CLI
+   census stores of phase 11 are explained against that machine file by
+   ``explain run --workers 1``, run again (a no-op: the store's bytes
+   unchanged), merged and reported. The explanations must be the census's
+   anomalies in order, with every cause in ``CAUSES`` and every evidence in
+   [0, 1]; the counts by cause and the unexplained rows are printed. The
+   kernel lane is explained again in this process with the GEMM's launches
+   counted (``explain[kernel_variants]``, which must be > 0).
 
 Each kernel's launch counter is set to 0 just before each path and read just
 after it. The next-to-last line is a JSON object with the kernels' numbers,
@@ -76,6 +92,7 @@ the last is ``{"ok": true, "device": {...}}``. Details go to
 
 import concurrent.futures
 import functools
+import gc
 import importlib.util
 import itertools
 import json
@@ -87,6 +104,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -107,6 +125,10 @@ KERNEL_LANE = ("--chains", "0", "--families", "kernel_variants", "--kernel-nativ
                "--per-size", "4", "--shards", "8", "--backend", "wall_clock")
 KERNEL_LANE_SIZES = (256, 512, 1024)
 CENSUS_TIMEOUT = 420  # seconds for one census command
+#: phase 12: the explain campaigns' flags (the reference's defaults, not cut)
+#: and the calibration's base machine, the H100 SXM sheet of ``peaks()``
+EXPLAIN_KNOBS = ()
+CALIBRATE = ("--machine", "h100-sxm", "--peak-flops", "6.7e13", "--hbm-bw", "3.35e12")
 TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
 
 # Planted faults in the GEMM that the 1000^3 f32 comparison at the 64^3 tile
@@ -1181,17 +1203,39 @@ def verdict_changes(first, second):
     return out
 
 
-def phase_census(torch, kmod, matmul_ref, launches, device="cuda", default_grid=(), lane=KERNEL_LANE,
+def track_graphs(algorithms):
+    """Weak references to every CUDA graph the chain algorithms capture
+    from now on (``algorithms.capture`` is wrapped; the replays are not).
+    Returns the list of references and a function that undoes the wrapping."""
+    live = []
+    capture = algorithms.capture
+
+    def tracked(fn, device):
+        replay = capture(fn, device)
+        live.append(weakref.ref(replay))
+        return replay
+
+    algorithms.capture = tracked
+
+    def undo():
+        algorithms.capture = capture
+
+    return live, undo
+
+
+def phase_census(torch, kmod, matmul_ref, launches, work, device="cuda", default_grid=(), lane=KERNEL_LANE,
                  lane_sizes=KERNEL_LANE_SIZES):
     """Phase 11: the census on the card, both grids, two passes each (see
     the module docstring). ``default_grid`` and ``lane`` are the grid flags
-    of the two censuses (the default grid: none). Returns the phase's
-    record; the hand GEMM's launches in the in-process lane join
+    of the two censuses (the default grid: none); the stores go under
+    ``work``. Returns the phase's record and the roots of the two CLI
+    stores; the hand GEMM's launches in the in-process lane join
     ``launches`` as ``census[kernel_variants]``."""
     from repro_torch.core import family, sweep
+    from repro_torch.expressions import algorithms
     from repro_torch.launch.report_md import census_tables
 
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_census_"))
+    work = Path(work)
     keep = OUT.parent / "census"
     keep.mkdir(parents=True, exist_ok=True)
     out = {"device_tf32": {"allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
@@ -1263,13 +1307,31 @@ def phase_census(torch, kmod, matmul_ref, launches, device="cuda", default_grid=
         fam_secs, undo = family_timer(sweep, family)
         if key == "kernel_lane":
             reset_gemm_counts(kmod)
+        graphs_live, untrack = track_graphs(algorithms)
+        allocated = torch.cuda.memory_allocated() if device == "cuda" else 0
         t0 = time.perf_counter()
         try:
             for shard in range(spec_.n_shards):
                 sweep.run_shard(spec_, str(root), shard, device=device)
         finally:
             undo()
+            untrack()
         secs = time.perf_counter() - t0
+        # The graphs go with their instances: none may outlive the pass.
+        alive = sum(ref() is not None for ref in graphs_live)
+        gc.collect()
+        alive_after_gc = sum(ref() is not None for ref in graphs_live)
+        memory = {"captured_graphs": len(graphs_live), "alive_after_pass": alive,
+                  "alive_after_gc": alive_after_gc, "allocated_before": allocated,
+                  "allocated_after": torch.cuda.memory_allocated() if device == "cuda" else 0}
+        passes[key]["graphs"] = memory
+        log(f"[11 census] {key} in process: {len(graphs_live)} CUDA graphs captured, alive after the pass "
+            f"{alive}, after gc {alive_after_gc}; torch.cuda.memory_allocated() {memory['allocated_before']} "
+            f"B before, {memory['allocated_after']} B after")
+        if alive_after_gc:
+            sys.exit(f"chip_smoke: {alive_after_gc} CUDA graphs of the {key} census outlived their instances")
+        if key == "default" and device == "cuda" and not graphs_live:
+            sys.exit("chip_smoke: the default census's chain family captured no CUDA graph")
         if key == "kernel_lane":
             launches["census[kernel_variants]"] = kmod.matmul_kernel.launches
         sweep.write_merged(spec_, str(root))
@@ -1288,11 +1350,109 @@ def phase_census(torch, kmod, matmul_ref, launches, device="cuda", default_grid=
         sys.exit("chip_smoke: the census's kernel lane launched no GEMM kernel")
     log(f"[11 census] GEMM kernel launches in the in-process kernel lane: {launches['census[kernel_variants]']}")
     out.update(passes)
-    shutil.rmtree(work)
     summary = {grid: {p_: {k_: v[k_] for k_ in ("instances", "anomalies", "seconds")}
-                      for p_, v in rows.items() if p_ != "verdict_changes"}
+                      for p_, v in rows.items() if p_ not in ("verdict_changes", "graphs")}
                | {"verdict_changes": rows["verdict_changes"]["count"]} for grid, rows in passes.items()}
     log("[11 census] summary " + json.dumps(summary))
+    return out, {"default": d1, "kernel_lane": d2}
+
+
+def explain_store_bytes(root):
+    """An explain store's files, the timing sidecars (wall seconds) left out."""
+    return {f.name: f.read_bytes() for f in sorted(Path(root).iterdir())
+            if f.is_file() and not f.name.endswith("timings.json")}
+
+
+def phase_explain(torch, kmod, launches, stores, work, device="cuda", knobs=EXPLAIN_KNOBS,
+                  calibrate=CALIBRATE):
+    """Phase 12: explain on the card (see the module docstring). ``stores``
+    are the CLI census roots of phase 11, ``knobs`` the explain campaign's
+    flags, ``calibrate`` the calibration's. Returns the phase's record; the
+    hand GEMM's launches in the in-process explanation of the kernel lane
+    join ``launches`` as ``explain[kernel_variants]``."""
+    from collections import Counter
+
+    from repro_torch.explain import CAUSES, runner
+
+    work = Path(work)
+    keep = OUT.parent / "explain"
+    keep.mkdir(parents=True, exist_ok=True)
+    out = {"knobs": list(knobs)}
+
+    cal = work / "machine.json"
+    secs, _ = census_cli(["explain", "calibrate", "--backend", "wall_clock", "--out-file", str(cal),
+                          "--device", device, *calibrate], device)
+    doc = json.loads(cal.read_text())
+    out["calibration"] = {"seconds": secs, "dispatch_s": doc["fit"]["dispatch_s"], "r2": doc["fit"]["r2"],
+                          "median_s_by_size": {p_["n"]: p_["t_median"] for p_ in doc["points"]},
+                          "efficiency_by_size": {p_["n"]: p_["efficiency"] for p_ in doc["points"]},
+                          "machine": doc["machine"]}
+    shutil.copy(cal, keep / "machine.json")
+    log(f"[12 explain] calibrate --backend wall_clock ({' '.join(calibrate)}) in {secs:.1f} s: dispatch "
+        f"{doc['fit']['dispatch_s'] * 1e6:.3f} us, r2 {doc['fit']['r2']:.4f}; median us by ladder size "
+        + ", ".join(f"{p_['n']}: {p_['t_median'] * 1e6:.2f}" for p_ in doc["points"]))
+
+    roots = {}
+    for key, census in stores.items():
+        root = work / f"explain_{key}"
+        args = ["explain", "run", "--census", str(census), "--out", str(root), "--workers", "1",
+                "--machine-file", str(cal), "--device", device, *knobs]
+        secs, _ = census_cli(args, device)
+        first = explain_store_bytes(root)
+        again, _ = census_cli(args, device)
+        if explain_store_bytes(root) != first:
+            sys.exit(f"chip_smoke: a second `explain run` of the {key} census changed its store")
+        census_cli(["explain", "merge", "--out", str(root)], device)
+        _, report = census_cli(["explain", "report", "--out", str(root)], device)
+        rows = [json.loads(line) for line in (root / "merged.jsonl").read_text().splitlines()]
+        census_rows = [json.loads(line) for line in (Path(census) / "merged.jsonl").read_text().splitlines()]
+        anomalies = [r["uid"] for r in census_rows if r["is_anomaly"]]
+        if [r["uid"] for r in rows] != anomalies:
+            sys.exit(f"chip_smoke: the {key} explanations are not the census's {len(anomalies)} anomalies "
+                     f"in order ({len(rows)} rows)")
+        bad = [r["uid"] for r in rows if r["cause"] not in CAUSES or not 0.0 <= float(r["evidence"]) <= 1.0]
+        if bad:
+            sys.exit(f"chip_smoke: {key} explanations with a cause outside CAUSES or evidence outside "
+                     f"[0, 1]: {bad}")
+        unexplained = [{k_: r[k_] for k_ in ("uid", "reason", "winner", "loser", "gap_rel", "evidence",
+                                              "components")}
+                       for r in rows if r["cause"] == "unexplained"]
+        out[key] = {"seconds": secs, "rerun_seconds": again, "anomalies": len(rows),
+                    "by_cause": dict(Counter(r["cause"] for r in rows)), "unexplained": unexplained,
+                    "by_family_cause": dict(Counter(f"{r['family']}/{r['cause']}" for r in rows))}
+        shutil.copy(root / "merged.jsonl", keep / f"{key}.jsonl")
+        roots[key] = root
+        log(f"[12 explain] {key}: {len(rows)} anomalies explained by `explain run` in {secs:.1f} s (the "
+            f"rerun, a no-op, {again:.1f} s); by cause {out[key]['by_cause']}; unexplained "
+            f"{len(unexplained)}")
+        for row in unexplained:
+            log(f"    unexplained {row['uid']} ({row['reason']}): {row['winner']} vs {row['loser']}, gap "
+                f"{100 * row['gap_rel']:.1f} %, components {row['components']}")
+        log("    " + report.strip().replace("\n", "\n    "))
+
+    # The kernel lane again, in this process, with the GEMM's launches counted.
+    espec = runner.ExplainSpec.load(str(roots["kernel_lane"] / runner.SPEC_FILE))
+    root = work / "explain_lane_in_process"
+    root.mkdir()
+    espec.save(str(root / runner.SPEC_FILE))
+    census = runner.explain_targets(espec)
+    reset_gemm_counts(kmod)
+    t0 = time.perf_counter()
+    for shard in range(espec.n_shards):
+        runner.run_explain_shard(espec, str(root), shard, census=census, device=device)
+    secs = time.perf_counter() - t0
+    launches["explain[kernel_variants]"] = kmod.matmul_kernel.launches
+    runner.write_merged_explained(espec, str(root))
+    first = {r["uid"]: r["cause"] for r in runner.merge_explained(espec, str(roots["kernel_lane"]))}
+    second = {r["uid"]: r["cause"] for r in runner.merge_explained(espec, str(root))}
+    changed = sorted(u for u in first if first[u] != second.get(u))
+    out["kernel_lane_in_process"] = {"seconds": secs, "gemm_launches": launches["explain[kernel_variants]"],
+                                     "by_cause": dict(Counter(second.values())), "causes_that_differ": changed}
+    log(f"[12 explain] kernel lane in process: {len(second)} anomalies in {secs:.1f} s, by cause "
+        f"{out['kernel_lane_in_process']['by_cause']}; GEMM kernel launches {launches['explain[kernel_variants]']}; "
+        f"causes that differ from the CLI pass: {len(changed)}")
+    if not launches["explain[kernel_variants]"]:
+        sys.exit("chip_smoke: the kernel lane's explanation launched no GEMM kernel")
     return out
 
 
@@ -1311,6 +1471,7 @@ def main():
         relative_flops,
     )
     from repro_torch.expressions import (
+        build_algorithm_fn,
         build_workloads,
         flops_table,
         get_instance,
@@ -1529,51 +1690,93 @@ def main():
         + ", ".join(f"{k_} {v:.2f}" for k_, v in host.items()))
 
     # ------------------------------------------------- 5. quickstart path --
+    # Both GEMM routes, each with jit=True (the algorithm captured once as a
+    # CUDA graph and replayed) and jit=False (eager launches), in one run.
     default_tile = kmod.DEFAULT_TILE
     hand_gemm = functools.partial(matmul, block_m=default_tile[0], block_n=default_tile[1],
                                   block_k=default_tile[2])
     launches = {}
     quickstart = {}
     launches_by_copy = {}
+    replay_checks = Checks(torch, "a graph replay")
     for route, gemm in (("torch_matmul", torch.matmul), ("hand_gemm", hand_gemm)):
-        reset_gemm_counts(kmod)
+        for mode in ("graph", "eager"):
+            path = f"quickstart[{route}]" if mode == "graph" else f"quickstart[{route}, eager]"
+            path_launches = {"total": 0, **{w: 0 for w in kmod.COPY_WIDTHS}}
+            for inst_name in INSTANCES:
+                inst = get_instance(inst_name, smoke=False)
+                algs = inst.algorithms()
+                flops = flops_table(algs)
+                rf = relative_flops(flops)
+                mats = make_chain_inputs(inst.dims)
+                t_start = time.perf_counter()
+                workloads = build_workloads(algs, mats, jit=mode == "graph", gemm=gemm)
+                if mode == "graph":
+                    # Each graph against eager launches of the same steps
+                    # (verify_algorithms' 1e-4), and the GEMM's counter against
+                    # the launches each replay holds: 3 replays, 3 x steps.
+                    # These calls do not count as the path's.
+                    for alg in algs:
+                        eager = build_algorithm_fn(alg, mats, jit=False, gemm=gemm)()
+                        before = kmod.matmul_kernel.launches
+                        for _ in range(3):
+                            out = workloads[alg.name]()
+                        counted = kmod.matmul_kernel.launches - before
+                        want = 3 * len(alg.steps) if route == "hand_gemm" else 0
+                        if counted != want:
+                            sys.exit(f"chip_smoke: 3 replays of {inst_name} {alg.name} ({route}) counted "
+                                     f"{counted} GEMM launches, not {want}")
+                        replay_checks.hold(route, out, eager, 1e-4,
+                                           f"{route} {inst_name} {alg.name} replay vs eager")
+                    replay_checks.stop_if_failed(f"phase 5, {route} replays")
+                # The path's launches are those of timing and ranking: the
+                # build's warm-up (and capture) and the checks above are not.
+                reset_gemm_counts(kmod)
+                timer = WallClockTimer(workloads)
+                single = {a.name: timer.measure(a.name) for a in algs}
+                result = measure_and_rank(initial_hypothesis_by_time(single), timer,
+                                          m_per_iteration=3, eps=0.03, max_measurements=30)
+                report = flops_discriminant_test(result, flops)
+                verdict = "ANOMALY: " + report.reason if report.is_anomaly else "valid discriminant"
+                labels = {a.name: a.label for a in algs}
+                entry = {
+                    "dims": list(inst.dims), "mode": mode, "converged": result.converged,
+                    "measurements_per_alg": result.measurements_per_alg,
+                    "ranks": result.ranks, "mean_ranks": result.mean_ranks, "rf": rf,
+                    "single_run_ms": {k: v * 1e3 for k, v in single.items()},
+                    "inner_repeats": timer.inner_repeats, "verdict": verdict,
+                    "min_flops_algs": list(report.min_flops_algs),
+                    "seconds": time.perf_counter() - t_start,
+                }
+                quickstart[f"{route}/{inst_name}" + ("" if mode == "graph" else "/eager")] = entry
+                log(f"[5 quickstart {route} {mode}] {inst_name} dims={inst.dims} converged="
+                    f"{result.converged} N={result.measurements_per_alg} -> {verdict} "
+                    f"(S_F = {', '.join(report.min_flops_algs)})")
+                for alg in result.sequence:
+                    log(f"    rank {alg.rank}  {alg.name:11s} {labels[alg.name]:18s} "
+                        f"mr={alg.mean_rank:.2f} RF={rf[alg.name]:.2f} "
+                        f"t1={single[alg.name] * 1e3:.4f} ms r={timer.inner_repeats[alg.name]}")
+                del workloads, timer
+                path_launches["total"] += kmod.matmul_kernel.launches
+                for w in kmod.COPY_WIDTHS:
+                    path_launches[w] += kmod.matmul_kernel.launches_by_copy[w]
+            launches[path] = path_launches["total"]
+            launches_by_copy[path] = {w: path_launches[w] for w in kmod.COPY_WIDTHS}
+            log(f"[5 quickstart {route} {mode}] GEMM kernel launches in timing and ranking: {launches[path]} "
+                f"(by copy width: {launches_by_copy[path]})")
+    for route in ("torch_matmul", "hand_gemm"):
         for inst_name in INSTANCES:
-            inst = get_instance(inst_name, smoke=False)
-            algs = inst.algorithms()
-            flops = flops_table(algs)
-            rf = relative_flops(flops)
-            mats = make_chain_inputs(inst.dims)
-            t_start = time.perf_counter()
-            timer = WallClockTimer(build_workloads(algs, mats, gemm=gemm))
-            single = {a.name: timer.measure(a.name) for a in algs}
-            result = measure_and_rank(initial_hypothesis_by_time(single), timer,
-                                      m_per_iteration=3, eps=0.03, max_measurements=30)
-            report = flops_discriminant_test(result, flops)
-            verdict = "ANOMALY: " + report.reason if report.is_anomaly else "valid discriminant"
-            labels = {a.name: a.label for a in algs}
-            entry = {
-                "dims": list(inst.dims), "converged": result.converged,
-                "measurements_per_alg": result.measurements_per_alg,
-                "ranks": result.ranks, "mean_ranks": result.mean_ranks, "rf": rf,
-                "single_run_ms": {k: v * 1e3 for k, v in single.items()},
-                "inner_repeats": timer.inner_repeats, "verdict": verdict,
-                "min_flops_algs": list(report.min_flops_algs),
-                "seconds": time.perf_counter() - t_start,
-            }
-            quickstart[f"{route}/{inst_name}"] = entry
-            log(f"[5 quickstart {route}] {inst_name} dims={inst.dims} converged="
-                f"{result.converged} N={result.measurements_per_alg} -> {verdict} "
-                f"(S_F = {', '.join(report.min_flops_algs)})")
-            for alg in result.sequence:
-                log(f"    rank {alg.rank}  {alg.name:11s} {labels[alg.name]:18s} "
-                    f"mr={alg.mean_rank:.2f} RF={rf[alg.name]:.2f} "
-                    f"t1={single[alg.name] * 1e3:.4f} ms r={timer.inner_repeats[alg.name]}")
-        launches[f"quickstart[{route}]"] = kmod.matmul_kernel.launches
-        launches_by_copy[f"quickstart[{route}]"] = dict(kmod.matmul_kernel.launches_by_copy)
-        log(f"[5 quickstart {route}] GEMM kernel launches: {kmod.matmul_kernel.launches} "
-            f"(by copy width: {kmod.matmul_kernel.launches_by_copy})")
+            g, e = quickstart[f"{route}/{inst_name}"], quickstart[f"{route}/{inst_name}/eager"]
+            log(f"[5 replay vs eager] {route} {inst_name}: single-run ms graph/eager "
+                + ", ".join(f"{a} {g['single_run_ms'][a]:.4f}/{e['single_run_ms'][a]:.4f}"
+                            for a in sorted(g["single_run_ms"]))
+                + f"; verdict graph: {g['verdict']}; eager: {e['verdict']}")
+    log(f"[5 replay vs eager] {replay_checks.n} graph outputs held to eager launches at 1e-4: "
+        f"max_abs_err {replay_checks.errs}")
     details["quickstart"] = quickstart
-    if launches["quickstart[hand_gemm]"] == 0:
+    details["replay_vs_eager"] = {"checks": replay_checks.n, "max_abs_err": replay_checks.errs,
+                                  "tolerance_used": replay_checks.used}
+    if launches["quickstart[hand_gemm]"] == 0 or launches["quickstart[hand_gemm, eager]"] == 0:
         sys.exit("chip_smoke: the hand-GEMM quickstart path launched no GEMM kernel")
 
     # --------------------------------------------------- 6. autotune path --
@@ -1660,10 +1863,18 @@ def main():
     details["ssd"] = ssd
     details["sites"] = phase_sites(torch, rank_site, attention_site, ssd_chunk_site)
     t_census = time.perf_counter()
-    details["census"] = phase_census(torch, kmod, matmul_ref, launches)
+    census_work = tempfile.mkdtemp(prefix="chip_smoke_census_")
+    details["census"], stores = phase_census(torch, kmod, matmul_ref, launches, census_work)
     details["census"]["seconds"] = time.perf_counter() - t_census
     gemm_launches["census[kernel_variants]"] = launches["census[kernel_variants]"]
     launches_by_copy["census[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
+    t_explain = time.perf_counter()
+    details["explain"] = phase_explain(torch, kmod, launches, stores, census_work)
+    details["explain"]["seconds"] = time.perf_counter() - t_explain
+    shutil.rmtree(census_work)
+    log(f"[12 explain] phase 12 took {details['explain']['seconds']:.1f} s")
+    gemm_launches["explain[kernel_variants]"] = launches["explain[kernel_variants]"]
+    launches_by_copy["explain[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
     details["launches"] = launches
 
     # ---------------------------------------------------------- results --
@@ -1674,8 +1885,7 @@ def main():
         "route": "cuda",
         "source": "src/repro_torch/kernels/matmul/csrc/gemm.cu",
         "replaces": "src/repro/kernels/matmul/matmul.py:45",
-        "launches": (launches["quickstart[hand_gemm]"] + launches["autotune[matmul_blocks]"]
-                     + launches["census[kernel_variants]"]),
+        "launches": sum(gemm_launches.values()),
         "max_abs_err": max(gemm_checks.errs.values()),
         "ms": main_row["kernel_ms"][tile_key],
         "plain_ms": main_row["plain_ms"],

@@ -7,7 +7,7 @@ module is the single registry every layer resolves through:
 * :class:`SweepSpec` validation and grid expansion (:mod:`repro_torch.core.sweep`)
 * the planner's CLI grid flags (:mod:`repro_torch.launch.sweep`)
 * the explainer's kernel decomposition (:mod:`repro_torch.explain.decompose`)
-  and, once explain is ported, its whole-algorithm re-measurement
+  and whole-algorithm re-measurement (:mod:`repro_torch.explain.runner`)
 * the markdown reports' family annotations (:mod:`repro_torch.launch.report_md`)
 
 An :class:`AlgorithmFamily` supplies, for one family name:
@@ -27,6 +27,10 @@ An :class:`AlgorithmFamily` supplies, for one family name:
 ``decompose``
     kernels per algorithm purely from the instance's ``params`` row — the
     explainer's offline rebuild path (no device, no re-measurement).
+``explain_workloads``
+    warmed whole-algorithm workloads on a device for only the algorithms an
+    explanation involves (families with large enumerations override this
+    to build selectively).
 ``grid_from_args``
     the family's slice of the planner's CLI namespace (None = the family
     is not part of this plan).
@@ -47,7 +51,7 @@ builders run on ``torch`` on an explicit device (default ``"cuda"``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -116,6 +120,17 @@ class AlgorithmFamily:
     def decompose(self, params: Mapping[str, Any]) -> Dict[str, Any]:
         """KernelSpecs per algorithm, purely from the params row."""
         raise NotImplementedError
+
+    def explain_workloads(
+        self, inst: InstanceSpec, involved: Sequence[str], device: DeviceLike = "cuda"
+    ) -> Dict[str, Callable[[], Any]]:
+        """Warmed workloads on ``device`` for ONLY the involved algorithms.
+        Default: build the full instance and filter — fine for families
+        with a handful of variants; families that enumerate dozens of
+        algorithms override this to build selectively."""
+        _, _, build_workloads = self.entry(inst)
+        whole = build_workloads(device)
+        return {alg: whole[alg] for alg in involved}
 
 
 # --------------------------------------------------------------- registry ---
@@ -222,6 +237,29 @@ class ChainFamily(AlgorithmFamily):
             int(params["seed"]),
         )
         return decompose_chain_dims(dims)
+
+    def explain_workloads(
+        self, inst: InstanceSpec, involved: Sequence[str], device: DeviceLike = "cuda"
+    ) -> Dict[str, Callable[[], Any]]:
+        """A chain instance enumerates dozens of algorithms; building all
+        of them to extract a winner/loser pair would dominate every
+        wall-clock explanation, so chains build the involved thunks
+        selectively (``jit=True``: one CUDA graph each on the card)."""
+        from repro_torch.expressions.algorithms import build_algorithm_fn, make_chain_inputs
+        from repro_torch.expressions.instances import random_instance
+
+        p = inst.params
+        chain = random_instance(
+            int(p["n_matrices"]), int(p["lo"]), int(p["hi"]), seed=int(p["seed"])
+        )
+        algs = {a.name: a for a in chain.algorithms()}
+        mats = make_chain_inputs(chain.dims, seed=int(p["seed"]), device=device)
+        out: Dict[str, Callable[[], Any]] = {}
+        for alg in involved:
+            fn = build_algorithm_fn(algs[alg], mats, jit=True)
+            fn()  # warm up: capture and library set-up stay out of timed regions
+            out[alg] = fn
+        return out
 
 
 # ---------------------------------------------------- generalized families ---

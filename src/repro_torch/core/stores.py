@@ -21,7 +21,8 @@ The built-in kinds (sweep, explain, and the serving oracle's ranking
 cache — ``ocache.json``) are registered at import time; a future kind
 (e.g. a replay campaign) registers itself here and both the queue and
 fsck pick it up with zero changes. A copy of the reference's
-``repro.core.stores``; of its kinds the port drains only the sweep so far.
+``repro.core.stores``; of its kinds the port drains the sweep and explain
+stores so far.
 """
 
 from __future__ import annotations
@@ -98,9 +99,9 @@ def detect_store_kind(out: str) -> Optional[StoreKind]:
 # Lazy imports inside the callables: stores.py must stay importable from
 # both repro_torch.core.sweep consumers and repro_torch.launch without
 # cycles. All three spec files are registered, so detection and
-# AmbiguousStore behave as in the reference; the explain and oracle kinds
-# refuse until their modules are ported (fsck then falls back to scanning
-# the shard files, as it does for a damaged spec).
+# AmbiguousStore behave as in the reference; the oracle kind refuses until
+# its modules are ported (fsck then falls back to scanning the shard
+# files, as it does for a damaged spec).
 
 
 class NotPortedError(NotImplementedError):
@@ -109,7 +110,7 @@ class NotPortedError(NotImplementedError):
 
 
 #: unported surface -> its item in ROADMAP.md's Queue 1
-NOT_PORTED = {"explain": 4, "oracle": 5, "predict": 6}
+NOT_PORTED = {"oracle": 5, "predict": 6}
 
 
 def not_ported(surface: str) -> str:
@@ -129,6 +130,18 @@ def _sweep_queue(out: str, device: str = "cuda") -> Any:
     return SweepQueue(out, device=device)
 
 
+def _explain_n_shards(out: str) -> int:
+    from repro_torch.explain.runner import ExplainSpec
+
+    return ExplainSpec.load(os.path.join(out, "espec.json")).n_shards
+
+
+def _explain_queue(out: str, device: str = "cuda") -> Any:
+    from repro_torch.launch.queue import ExplainQueue
+
+    return ExplainQueue(out, device=device)
+
+
 def _refuse(surface: str) -> Callable[..., Any]:
     def refuse(out: str, *args: Any, **kwargs: Any) -> Any:
         raise NotPortedError(f"{out}: a {surface} store; {not_ported(surface)}")
@@ -142,7 +155,7 @@ register_store_kind(StoreKind(
 ))
 register_store_kind(StoreKind(
     name="explain", spec_file="espec.json",
-    load_n_shards=_refuse("explain"), make_queue=_refuse("explain"),
+    load_n_shards=_explain_n_shards, make_queue=_explain_queue,
 ))
 register_store_kind(StoreKind(
     name="oracle", spec_file="ocache.json",

@@ -9,9 +9,9 @@ analytic FLOP accounting — per algorithm, kernel FLOPs sum to the family's
 ``flops_table`` entry — which is what lets the AnomalyExplainer reconcile
 whole-algorithm time against the kernel sum without a fudge term.
 
-Pure python/numpy: the metadata half of the reference's
-``repro.explain.decompose``. The isolated segment workloads
-(``build_kernel_workload``) come with the slice that ports explain.
+Pure python/numpy, as the reference's ``repro.explain.decompose``;
+:func:`build_kernel_workload` touches a device only when a wall-clock
+explanation re-measures a kernel in isolation.
 """
 
 from __future__ import annotations
@@ -258,3 +258,108 @@ def kernels_from_record(record: Mapping[str, Any]) -> Dict[str, List[KernelSpec]
     if record["family"] == "chain" and record.get("dims"):
         return decompose_chain_dims(record["dims"])
     return decompose_generalized(record["family"], int(record["size"]))
+
+
+# ------------------------------------------------------- isolated workloads ---
+
+
+def _segment_ops() -> Dict[str, Callable[..., Any]]:
+    """op -> the PyTorch call that runs it, the call the families use for
+    the same op (:mod:`repro_torch.expressions.generalized`), so that a
+    segment and its algorithm are measured alike: ``torch.matmul`` (cuBLAS
+    on the card) for the products, ``torch.linalg`` (cuSOLVER) for the
+    factorizations and solves. getrf returns the packed LU factor of
+    ``torch.linalg.lu_factor``; the reference returns the unit-lower L of
+    ``jax.scipy.linalg.lu``, the same factorization."""
+    import torch
+
+    return {
+        "gemm": lambda a, b: a @ b,
+        "syrk": lambda a: a @ a.T,
+        "gemv": lambda a, x: a @ x,
+        "dot": lambda u, v: u @ v,
+        "add": lambda a, b: a + b,
+        "inv": torch.linalg.inv,
+        "getrf": lambda m: torch.linalg.lu_factor(m)[0],
+        "potrf": torch.linalg.cholesky,
+        "trsv": lambda l, b: torch.linalg.solve_triangular(l, b[:, None], upper=False)[:, 0],
+    }
+
+
+def _segment(op: str, args: Sequence[Any]) -> Callable[[], Any]:
+    """A zero-arg callable running ``op`` once on ``args`` and waiting for
+    it (one eager launch plus :func:`~repro_torch.device.block`), warmed up
+    here so that library set-up stays out of the timed region."""
+    from repro_torch.device import block
+
+    fn = _segment_ops()[op]
+    block(fn(*args))
+
+    def run() -> Any:
+        return block(fn(*args))
+
+    return run
+
+
+def build_kernel_workload(kernel: KernelSpec, seed: int = 0,
+                          device: Any = "cuda") -> Callable[[], Any]:
+    """A zero-arg callable executing ONE kernel in isolation on fresh
+    random operands on ``device`` (blocking, warmed up) — the wall-clock
+    backend's segment re-measurement.
+
+    Operands come from a ``torch.Generator`` on the device seeded with
+    ``seed``, with the reference's scalings (``1/sqrt(cols)``) and its SPD
+    shift (``a aᵀ + n I``) for the factorizations; their numbers differ from
+    ``jax.random``'s, so to hold a segment to the reference's on the same
+    bytes use :func:`build_kernel_workload_from_reference`."""
+    import math
+
+    import torch
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+    def normal(shape: Tuple[int, ...]) -> Any:
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32) / math.sqrt(max(shape[-1], 1))
+
+    op, shape = kernel.op, kernel.shape
+    if op == "gemm":
+        m, k, n = shape
+        args = [normal((m, k)), normal((k, n))]
+    elif op == "syrk":
+        n, k = shape
+        args = [normal((n, k))]
+    elif op == "gemv":
+        m, n = shape
+        args = [normal((m, n)), normal((n,))]
+    elif op == "dot":
+        (n,) = shape
+        args = [normal((n,)), normal((n,))]
+    elif op == "add":
+        m, n = shape
+        args = [normal((m, n)), normal((m, n))]
+    elif op in ("inv", "getrf", "potrf", "trsv"):
+        (n,) = shape
+        a = normal((n, n))
+        spd = a @ a.T + n * torch.eye(n, dtype=torch.float32, device=dev)  # well-conditioned
+        if op == "trsv":
+            args = [torch.linalg.cholesky(spd), normal((n,))]
+        else:
+            args = [spd]
+    else:  # pragma: no cover - _OPS and this table are kept in sync
+        raise ValueError(f"no workload builder for op {op!r}")
+    return _segment(op, args)
+
+
+def build_kernel_workload_from_reference(
+    kernel: KernelSpec, arrays: Sequence[Any], device: Any = "cuda"
+) -> Callable[[], Any]:
+    """:func:`build_kernel_workload` on the given operands (numpy arrays in
+    the order the reference's workload takes them, e.g. its own inputs bit
+    for bit) instead of drawn ones."""
+    from repro_torch.expressions.algorithms import inputs_from_reference
+
+    return _segment(kernel.op, inputs_from_reference(arrays, device=device))

@@ -8,16 +8,21 @@ GEMM of :mod:`repro_torch.kernels.matmul.ops`. The builder returns a
 zero-argument callable that ends in ``torch.cuda.synchronize()`` for CUDA
 tensors, suitable for :class:`repro_torch.core.WallClockTimer`.
 
+``jit=True``, the reference's one XLA executable per algorithm, captures
+the step sequence on the card once as a CUDA graph and replays it
+(:func:`repro_torch.graphs.capture`); the synchronize stays outside the
+graph. ``jit=False`` launches the steps eagerly one by one. On CPU tensors
+both modes run eagerly.
+
 Note on instruction order: under XLA, independent GEMMs inside one jitted
 function may be reordered by the compiler, so two instruction orders of the
 same parenthesization typically compile to identical HLO — i.e. they are
 *equivalent algorithms*, which is exactly the situation the paper's
-three-way comparison is designed to detect. Eager CUDA cannot reorder: the
-port launches the steps in the given order in both ``jit`` modes, so
-order-distinct algorithms that tied under XLA may separate here. That is a
-measurement, not a fault. The reference's ``jit`` flag is accepted and
-changes nothing yet; capturing the step sequence as one CUDA graph (the
-counterpart of one XLA executable) is later work.
+three-way comparison is designed to detect. A CUDA graph keeps the order of
+its captured launches on one stream, and eager launches cannot reorder
+either: the port runs the steps in the given order in both ``jit`` modes,
+so order-distinct algorithms that tied under XLA may separate here. That is
+a measurement, not a fault.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, block, resolve_device
+from ..graphs import capture
 from .chain import ChainAlgorithm, Step
 
 Gemm = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -96,10 +102,14 @@ def build_algorithm_fn(
 ) -> Callable[[], torch.Tensor]:
     """Zero-arg callable running one algorithm to completion.
 
-    ``jit`` is accepted for the reference's signature; both modes launch
-    the steps eagerly in instruction order (see the module docstring).
+    With ``jit`` on CUDA tensors the steps are captured here, once, as a
+    CUDA graph (after an eager warm-up on the capture stream), and each
+    call replays it; a capture that fails raises. Otherwise each call
+    launches the steps eagerly in instruction order.
     """
     operands = {f"M{i}": m for i, m in enumerate(matrices)}
+    if jit and any(m.is_cuda for m in matrices):
+        return capture(lambda: execute_steps(alg.steps, operands, gemm), matrices[0].device)
 
     def run() -> torch.Tensor:
         return block(execute_steps(alg.steps, operands, gemm))
@@ -118,7 +128,8 @@ def build_workloads(
 
     With ``warmup=True`` each callable is executed once here so that
     library set-up ("library overheads", paper Sec. I step 1: cuBLAS
-    handles, the hand GEMM's first load) never lands inside a timed region.
+    handles, the hand GEMM's first load; with ``jit`` on the card, the
+    graph's first replay) never lands inside a timed region.
     """
     table: Dict[str, Callable[[], torch.Tensor]] = {}
     for alg in algs:

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...graphs import count_launch
 from ..build import NVCC_FLAGS, build_library  # noqa: F401  (NVCC_FLAGS: the build's flags)
 from .ref import matmul_ref
 
@@ -126,7 +127,9 @@ def matmul_kernel(
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version :func:`~repro_torch.kernels.matmul.ref.matmul_ref`.
     ``matmul_kernel.launches`` counts kernel launches and
-    ``matmul_kernel.launches_by_copy`` the same per copy width.
+    ``matmul_kernel.launches_by_copy`` the same per copy width; a launch
+    captured into a CUDA graph counts at each replay
+    (:func:`repro_torch.graphs.count_launch`).
     """
     check_tile(block_m, block_n, block_k)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -164,9 +167,13 @@ def matmul_kernel(
         raise RuntimeError(f"GEMM kernel launch failed: error {err} for tile "
                            f"{(block_m, block_n, block_k)}, shape {(m, k, n)}, "
                            f"{width}-byte copies")
+    count_launch(functools.partial(_count, width))
+    return c
+
+
+def _count(width: int) -> None:
     matmul_kernel.launches += 1
     matmul_kernel.launches_by_copy[width] += 1
-    return c
 
 
 matmul_kernel.launches = 0

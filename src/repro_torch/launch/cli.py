@@ -4,12 +4,13 @@ One entry point over the port's launch surfaces, as ``python -m repro`` is
 the reference's. Each sub-CLI keeps its own parser (registered here, never
 duplicated):
 
-    python -m repro_torch census run --out DIR --workers 4   # DiscriminantSweep
-    python -m repro_torch queue  work --out DIR              # pull-based drain
-    python -m repro_torch fsck   --out DIR [--dry-run]       # repair any store
+    python -m repro_torch census  run --out DIR --workers 4   # DiscriminantSweep
+    python -m repro_torch explain run --census DIR --out E    # AnomalyExplainer
+    python -m repro_torch queue   work --out DIR              # pull-based drain
+    python -m repro_torch fsck    --out DIR [--dry-run]       # repair any store
 
-The reference's ``explain``, ``oracle`` and ``predict`` surfaces are named
-too; each says which ROADMAP item ports it and exits 2. The reference's
+The reference's ``oracle`` and ``predict`` surfaces are named too; each
+says which ROADMAP item ports it and exits 2. The reference's
 legacy ``python -m repro.launch.X`` aliases have no counterpart here.
 
 Dispatch is manual (argv[0] lookup, remainder forwarded verbatim) rather
@@ -42,6 +43,12 @@ def _fsck_main(argv: List[str], prog: str) -> int:
     return main(argv, prog=prog)
 
 
+def _explain_main(argv: List[str], prog: str) -> int:
+    from repro_torch.launch.explain import main
+
+    return main(argv, prog=prog)
+
+
 def _not_ported(surface: str) -> Callable[[List[str], str], int]:
     def refuse(argv: List[str], prog: str) -> int:
         from repro_torch.core.stores import not_ported
@@ -57,8 +64,8 @@ def _not_ported(surface: str) -> Callable[[List[str], str], int]:
 SURFACES: "dict[str, Tuple[Callable[[List[str], str], int], str]]" = {
     "census": (_census_main,
                "plan/run/merge/report the FLOPs-discriminant census"),
-    "explain": (_not_ported("explain"),
-                "explain the census's anomalies (not ported yet)"),
+    "explain": (_explain_main,
+                "explain the census's anomalies (root-cause campaigns)"),
     "queue": (_queue_main,
               "drain a campaign store with pull-based multi-host workers"),
     "fsck": (_fsck_main,

@@ -8,11 +8,11 @@ rows it claims to have. This tool is the repair path:
 
     PYTHONPATH=src python -m repro_torch fsck --out DIR [--dry-run]
 
-(also reachable as ``repro_torch census fsck`` / ``repro_torch queue
-fsck`` — all routes share one flag set,
+(also reachable as ``repro_torch census fsck`` / ``repro_torch explain
+fsck`` / ``repro_torch queue fsck`` — all routes share one flag set,
 :func:`repro_torch.launch.cliutil.add_fsck_args`). A store of a kind the
-port has not ported yet (explain, oracle) is still checked: its shard count
-comes from the shard files on disk, as for a damaged spec.
+port has not ported yet (oracle) is still checked: its shard count comes
+from the shard files on disk, as for a damaged spec.
 
 For every shard it classifies damage and acts:
 

@@ -21,10 +21,11 @@ run, because a lease takeover is literally the kill/resume path.
 
 The queue resolves the store root's campaign kind through the store-kind
 registry (:mod:`repro_torch.core.stores`): ``spec.json`` = a
-DiscriminantSweep census, the one kind the port drains so far (an explain
-or oracle store is refused as not ported yet). A wall-clock census runs its
-workloads on ``--device`` (default ``cuda``); ``queue run`` gives each
-simulated host a GPU of its own, as ``census run`` does its workers. On-disk
+DiscriminantSweep census, ``espec.json`` = an AnomalyExplainer campaign (an
+oracle store is refused as not ported yet). A wall-clock census, or the
+explanation of one, runs its workloads on ``--device`` (default ``cuda``);
+``queue run`` gives each simulated host a GPU of its own, as ``census run``
+does its workers. On-disk
 layout per shard (all under ``--out``):
 
     shard-NNNN.jsonl           append-only records (source of truth)
@@ -62,6 +63,7 @@ from repro_torch.core.sweep import ShardStore, StoreDamaged, SweepSpec, shard_co
 from repro_torch.launch.cliutil import add_device_arg, add_fsck_args, fsck_command
 
 SWEEP_SPEC = "spec.json"
+EXPLAIN_SPEC = "espec.json"
 
 
 # ----------------------------------------------------------- the adapters ---
@@ -105,6 +107,55 @@ class SweepQueue:
 
         prog = sweep_progress(self.spec, self.out)
         return {"completed": prog["completed"], "total": prog["instances"]}
+
+
+class ExplainQueue:
+    """An explanation-campaign store as a drainable queue; a wall-clock
+    census's anomalies are explained on ``device``."""
+
+    kind = "explain"
+
+    def __init__(self, out: str, device: str = "cuda") -> None:
+        from repro_torch.explain.runner import ExplainSpec, explain_targets
+
+        self.out = out
+        self.device = device
+        self.espec = ExplainSpec.load(os.path.join(out, EXPLAIN_SPEC))
+        self.n_shards = self.espec.n_shards
+        #: (sweep spec, anomaly work list) — parsed once per host process
+        self.census = explain_targets(self.espec)
+        self.backend = self.census[0].backend
+
+    def shard_totals(self) -> List[int]:
+        from repro_torch.explain.runner import shard_targets
+
+        _, targets = self.census
+        return [
+            len(shard_targets(self.espec, targets, s))
+            for s in range(self.n_shards)
+        ]
+
+    def run_shard(self, shard: int, *, heartbeat, max_steps, progress) -> None:
+        from repro_torch.explain.runner import run_explain_shard
+
+        run_explain_shard(
+            self.espec, self.out, shard,
+            max_steps=max_steps, progress=progress,
+            census=self.census, heartbeat=heartbeat,
+            device=self.device,
+        )
+
+    def merge(self) -> str:
+        from repro_torch.explain.runner import write_merged_explained
+
+        return write_merged_explained(self.espec, self.out)
+
+    def progress(self) -> Dict[str, int]:
+        from repro_torch.explain.runner import explain_progress
+
+        _, targets = self.census
+        prog = explain_progress(self.espec, self.out, targets=targets)
+        return {"completed": prog["completed"], "total": prog["anomalies"]}
 
 
 def open_queue(out: str, device: str = "cuda"):
@@ -339,7 +390,7 @@ def main(argv: Optional[List[str]] = None, prog: Optional[str] = None) -> int:
 
     def add_worker_args(p: argparse.ArgumentParser) -> None:
         p.add_argument("--out", required=True,
-                       help="shared store root (a census)")
+                       help="shared store root (sweep or explain)")
         p.add_argument("--ttl", type=float, default=DEFAULT_TTL,
                        help="seconds without a heartbeat before a lease "
                        "counts as dead and may be adopted")

@@ -1,8 +1,8 @@
 """The census (DiscriminantSweep) anomaly-rate tables in the style of the
-paper's Figs. 5-7 — a copy of the census half of the reference's
-``repro.launch.report_md``. The explain tables refuse until explain is
-ported; the roofline and perf tables of the reference's dry runs are not
-part of the port yet."""
+paper's Figs. 5-7 and the AnomalyExplainer's cause tables — a copy of the
+census and explain halves of the reference's ``repro.launch.report_md``.
+The roofline and perf tables of the reference's dry runs, and its predict
+tables, are not part of the port yet."""
 
 
 def _census_agg_row(label: str, a: dict) -> str:
@@ -87,8 +87,56 @@ def census_tables(records, name: str = "census") -> str:
 
 
 def explain_tables(records, name: str = "explain") -> str:
-    """Markdown cause tables from merged AnomalyExplainer records — refused
-    until explain is ported."""
-    from repro_torch.core.stores import NotPortedError, not_ported
+    """Markdown cause tables from merged AnomalyExplainer records: cause
+    rates with evidence, family x cause, offending-kernel tally, and the
+    highest-evidence examples — the census anomalies, explained."""
+    from repro_torch.explain.runner import explain_summary
 
-    raise NotPortedError(f"explain tables: {not_ported('explain')}")
+    s = explain_summary(records)
+    out = [
+        f"## Explanations `{name}` — anomaly root causes",
+        "",
+        f"{s['total']} anomalies explained, mean evidence "
+        f"{s['mean_evidence']:.2f} (fraction of the winner/loser time gap "
+        "the assigned cause accounts for).",
+        "",
+        "### By cause",
+        "",
+        "| cause | n | share | mean evidence |",
+        "|---|---|---|---|",
+    ]
+    for cause, a in s["by_cause"].items():
+        out.append(f"| {cause} | {a['n']} | {100.0 * a['share']:.1f}% | "
+                   f"{a['mean_evidence']:.2f} |")
+    out += ["", "### Family x cause", "",
+            "| family | cause | n | mean evidence |", "|---|---|---|---|"]
+    for fam, causes in s["by_family_cause"].items():
+        for cause, a in causes.items():
+            out.append(f"| {fam} | {cause} | {a['n']} | "
+                       f"{a['mean_evidence']:.2f} |")
+    if s["offending_ops"]:
+        out += ["", "### Offending kernels", "",
+                "| kernel op | anomalies it explains |", "|---|---|"]
+        for op, n in sorted(s["offending_ops"].items(),
+                            key=lambda kv: (-kv[1], kv[0])):
+            out.append(f"| {op} | {n} |")
+    top = sorted(records, key=lambda r: (-float(r["evidence"]), r["index"]))[:5]
+    if top:
+        out += ["", "### Highest-evidence examples", "",
+                "| uid | reason | cause | evidence | offending kernel/pair | "
+                "gap | gap z | flip p | modes |",
+                "|---|---|---|---|---|---|---|---|---|"]
+        for r in top:
+            z = r.get("gap_zscore")
+            flip = r.get("flip_probability")
+            modes = (r.get("bimodality") or {}).get("share")
+            out.append(
+                f"| {r['uid']} | {r['reason']} | {r['cause']} | "
+                f"{float(r['evidence']):.2f} | "
+                f"{r.get('offending_kernel') or '—'} | "
+                f"{100.0 * float(r['gap_rel']):.1f}% | "
+                f"{f'{float(z):.1f}' if z is not None else '—'} | "
+                f"{f'{float(flip):.2f}' if flip is not None else '—'} | "
+                f"{f'{100.0 * float(modes):.0f}%' if modes is not None else '—'} |"
+            )
+    return "\n".join(out) + "\n"

@@ -297,11 +297,13 @@ def test_predictor_spec_refused(tmp_path):
     assert not os.listdir(tmp_path)  # refused before the store was opened
 
 
-def test_explain_tables_refused():
+def test_explain_tables_equal_reference_without_records():
+    """The explain tables are ported (item 4): with no explained anomaly
+    they render the reference's text (records: tests/test_torch_explain.py)."""
+    from repro.launch.report_md import explain_tables as ref_tables
     from repro_torch.launch.report_md import explain_tables
 
-    with pytest.raises(NotPortedError, match="item 4"):
-        explain_tables([])
+    assert explain_tables([], name="t") == ref_tables([], name="t")
 
 
 def test_census_tables_render_the_port_store(tmp_path):

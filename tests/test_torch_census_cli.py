@@ -173,17 +173,18 @@ def _store_bytes(root):
 
 
 def test_fsck_cli_on_an_unported_store_kind_scans_shard_files(tmp_path):
-    """An explain store (``espec.json``) is still checked: the shard count
-    comes from the shard files, as for a damaged spec."""
-    root = tmp_path / "explain"
+    """An oracle store (``ocache.json``) is still checked: the shard count
+    comes from the shard files, as for a damaged spec. (An explain store,
+    ported now, is checked by its spec: tests/test_torch_explain_cli.py.)"""
+    root = tmp_path / "oracle"
     root.mkdir()
-    (root / "espec.json").write_text("{}")
+    (root / "ocache.json").write_text("{}")
     port_sweep.ShardStore(str(root), 1).open().append_records([{"uid": "a", "index": 0}])
     with open(root / "shard-0001.jsonl", "ab") as fh:
         fh.write(b"{torn")
     out = _cli("repro_torch", ["fsck", "--out", str(root)], timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "(explain, 2 shards)" in out.stdout and "[torn_tail]" in out.stdout
+    assert "(oracle, 2 shards)" in out.stdout and "[torn_tail]" in out.stdout
 
 
 # ------------------------------------------------------ what the port adds ---
@@ -246,13 +247,13 @@ def test_census_plan_refuses_a_predictor(tmp_path):
     assert not (tmp_path / "spec.json").exists()
 
 
-@pytest.mark.parametrize("surface,item", [("explain", 4), ("oracle", 5), ("predict", 6)])
+@pytest.mark.parametrize("surface,item", [("oracle", 5), ("predict", 6)])
 def test_unported_surfaces_say_which_item_ports_them(surface, item, capsys):
     assert cli.main([surface, "run", "--out", "x"]) == 2
     assert f"{surface} is not ported yet (ROADMAP Queue 1 item {item})" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("spec_file,item", [("espec.json", 4), ("ocache.json", 5)])
+@pytest.mark.parametrize("spec_file,item", [("ocache.json", 5)])
 def test_queue_refuses_an_unported_store_kind(tmp_path, spec_file, item):
     (tmp_path / spec_file).write_text("{}")
     with pytest.raises(SystemExit, match=f"item {item}"):

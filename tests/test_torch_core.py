@@ -208,6 +208,8 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.models.attention, repro_torch.models.mamba2\n"
         "import repro_torch.core.sweep, repro_torch.launch.cli\n"
         "import repro_torch.expressions.generalized\n"
+        "import repro_torch.explain, repro_torch.explain.runner, repro_torch.roofline\n"
+        "import repro_torch.graphs, repro_torch.launch.explain\n"
         "assert not [m for m, mod in sys.modules.items()"
         " if mod is not None and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "print('ok')\n"

@@ -67,6 +67,24 @@ def test_algorithms_match_reference_product(name, smoke):
     port.verify_algorithms(port.generate_chain_algorithms(dims), mats)
 
 
+@pytest.mark.parametrize("gemm", ["torch_matmul", "hand_gemm"])
+def test_jit_equals_eager_on_cpu_tensors(gemm):
+    """On CPU tensors ``jit=True`` runs the steps eagerly, as ``jit=False``
+    does (a CUDA graph needs the card): both give the same bits, call after
+    call, on both GEMM routes."""
+    from repro_torch.kernels.matmul.ops import matmul
+
+    fn = torch.matmul if gemm == "torch_matmul" else matmul
+    dims = port.SMOKE_INSTANCES["anomaly_331"]
+    mats = port.make_chain_inputs(dims, seed=2, device="cpu")
+    for alg in port.generate_chain_algorithms(dims):
+        graphed = port.build_algorithm_fn(alg, mats, jit=True, gemm=fn)
+        eager = port.build_algorithm_fn(alg, mats, jit=False, gemm=fn)
+        first = graphed()
+        assert torch.equal(first, eager())
+        assert torch.equal(graphed(), first)
+
+
 def test_build_workloads_feed_the_wallclock_timer():
     from repro_torch.core import WallClockTimer
 
