@@ -64,10 +64,11 @@ Phases (any failure exits non-zero and prints no result):
    grid (120 chains, gram/distributive/solve/bilinear at five sizes; 220
    instances) by ``census run`` on wall clock, and the GPU kernel lane
    (``kernel_variants`` with ``--kernel-native``, the hand GEMM's tiles
-   first held against ``matmul_ref``) by ``census plan`` and ``queue
-   work``, each merged and reported; then both grids again in this process
-   through ``run_shard(..., device="cuda")`` with the GEMM's launches
-   counted, every store checked (checksums, one record per instance, the
+   first held against the exact product, ``matmul_ref``'s in f64) by
+   ``census plan`` and ``queue work``, each merged and reported; then both
+   grids again in this process through ``run_shard(..., device="cuda")``
+   with the GEMM's launches counted, every store checked (checksums, one
+   record per instance, the
    reference's metadata, inner repeats), a cost-model census on this host
    against the repo's golden store, and the verdicts of the two passes
    compared (recorded, not required to agree). The chain family's
@@ -82,7 +83,29 @@ Phases (any failure exits non-zero and prints no result):
    anomalies in order, with every cause in ``CAUSES`` and every evidence in
    [0, 1]; the counts by cause and the unexplained rows are printed. The
    kernel lane is explained again in this process with the GEMM's launches
-   counted (``explain[kernel_variants]``, which must be > 0).
+   counted (``explain[kernel_variants]``, which must be > 0);
+13. the ranking oracle and the learned cost model, through ``python -m
+   repro_torch oracle|predict``: caches warmed from both CLI censuses and
+   their explanations answer every grid instance ``measured`` (by ``oracle
+   query --batch``), with the census record's ranks and verdict and the
+   explanation's cause; kernel-lane misses outside the warm buckets (the
+   hand GEMM's tiles at the misses' sizes first held against the exact
+   product, as in phase 11) answer ``model_only``, are enqueued and drained on those
+   tiles by ``queue work --device cuda`` and, with the GEMM's launches counted
+   (``oracle[kernel_variants]``), by the same entry point in this process,
+   then answer ``measured`` with nothing pending; ``oracle serve --refresh``
+   answers grid queries and misses (a chain among them, whose CUDA graph
+   its refresher thread captures) from a FIFO, and the misses answer
+   ``measured`` once its refresher has drained them; ``predict train|eval``
+   on a cost-model census of the default grid, and an active cost-model
+   census (``--predictor``) that must keep exactly the full census's
+   anomaly set; an active wall-clock census on the card, gated by a model
+   trained with ``--machine cpu-1core``, that must both predict (the
+   distributive and solve instances) and measure (the GEMM's tiles), timed
+   against the full census of its grid and run again in this process with
+   the GEMM's launches counted (``active_census[kernel_variants]``); and a
+   cache warmed with that model answering a kernel-lane miss
+   ``learned_model`` and still enqueueing it.
 
 Each kernel's launch counter is set to 0 just before each path and read just
 after it. The next-to-last line is a JSON object with the kernels' numbers,
@@ -129,6 +152,17 @@ CENSUS_TIMEOUT = 420  # seconds for one census command
 #: and the calibration's base machine, the H100 SXM sheet of ``peaks()``
 EXPLAIN_KNOBS = ()
 CALIBRATE = ("--machine", "h100-sxm", "--peak-flops", "6.7e13", "--hbm-bw", "3.35e12")
+#: phase 13: the kernel lane's misses (sizes outside its warm buckets), the
+#: misses fed to `oracle serve --refresh` on the default cache (outside its
+#: buckets; a chain among them), and the active wall-clock census's grid:
+#: instances the gate skips (FLOPs 2x apart or more) and the hand GEMM's
+#: tiles (equal FLOPs), which it must measure
+ORACLE_MISS_SIZES = (2048, 128)
+SERVE_MISSES = ({"family": "chain", "params": {"n_matrices": 3, "lo": 1024, "hi": 2048, "seed": 0}},
+                {"family": "gram", "params": {"size": 1024, "seed": 0}})
+ACTIVE_GRID = ("--chains", "0", "--families", "distributive,solve,kernel_variants", "--kernel-sites", "matmul",
+               "--kernel-native", "--sizes", "256,512", "--per-size", "2", "--shards", "2")
+ORACLE_SERVE_TIMEOUT = 300  # seconds for `oracle serve --refresh` to drain its misses
 TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
 
 # Planted faults in the GEMM that the 1000^3 f32 comparison at the 64^3 tile
@@ -1223,6 +1257,43 @@ def track_graphs(algorithms):
     return live, undo
 
 
+def hold_matmul_variants(torch, matmul_ref, sizes, device, phase):
+    """Every variant of the ``kernel_variants`` matmul site at each of
+    ``sizes``, on the inputs of seed 0 that a census instance of that size
+    and seed gets. The hand GEMM's tiles are held at the f32 tolerance
+    against the exact product (``matmul_ref``'s product taken in f64, then
+    rounded once to f32): at K = 2048 ``matmul_ref``'s own f32 sum misses
+    that tolerance against it, so a comparison with ``matmul_ref`` would
+    count the plain version's rounding as the kernel's. The library
+    baseline ``xla_dot`` is ``matmul_ref``'s own call and is held against
+    it. The tiles' errors against ``matmul_ref`` and ``matmul_ref``'s
+    against the exact product are recorded, not required. A disagreement
+    ends the run. These launches are no path's: a path's count is reset
+    before it runs. Returns the required checks and the recorded ones."""
+    from repro_torch.core import family
+
+    checks = Checks(torch, "a census matmul variant")
+    recorded = Checks(torch, "recorded only")
+    kv = family.get_family("kernel_variants")
+    for size in sizes:
+        site = kv._build_site("matmul", family._kernel_site_config("matmul", size), False, device)
+        a, b = site.make_inputs(0)
+        plain = matmul_ref(a, b)
+        exact = (a.double() @ b.double()).float()
+        recorded.hold(f"matmul_ref at {size}", plain, exact, TOL["float32"], f"matmul_ref {size}^3")
+        for variant in site.variants:
+            out = variant.build(a, b)()
+            if variant.name == "xla_dot":
+                checks.hold(variant.name, out, plain, TOL["float32"], f"census matmul {size}^3 xla_dot")
+                continue
+            checks.hold(variant.name, out, exact, TOL["float32"], f"census matmul {size}^3 {variant.name}")
+            recorded.hold(f"{variant.name} against matmul_ref at {size}", out, plain, TOL["float32"],
+                          f"census matmul {size}^3 {variant.name} against matmul_ref")
+        del a, b, plain, exact, out
+    checks.stop_if_failed(phase)
+    return checks, recorded
+
+
 def phase_census(torch, kmod, matmul_ref, launches, work, device="cuda", default_grid=(), lane=KERNEL_LANE,
                  lane_sizes=KERNEL_LANE_SIZES):
     """Phase 11: the census on the card, both grids, two passes each (see
@@ -1272,21 +1343,12 @@ def phase_census(torch, kmod, matmul_ref, launches, work, device="cuda", default
     log("    " + report.strip().replace("\n", "\n    "))
 
     # the hand GEMM's census variants against matmul_ref before the lane runs
-    checks = Checks(torch, "a census matmul variant")
-    kv = family.get_family("kernel_variants")
-    for size in lane_sizes:
-        cfg = family._kernel_site_config("matmul", size)
-        site = kv._build_site("matmul", cfg, False, device)
-        a, b = site.make_inputs(0)
-        plain = matmul_ref(a, b)
-        for variant in site.variants:
-            checks.hold(variant.name, variant.build(a, b)(), plain, TOL["float32"],
-                        f"census matmul {size}^3 {variant.name}")
-    log(f"[11 census] kernel lane's matmul variants vs matmul_ref at {lane_sizes}: {checks.n} checks, "
-        f"max_abs_err {checks.errs}, share of the f32 tolerance {checks.used}")
-    checks.stop_if_failed("phase 11")
-    out["matmul_variants"] = {"max_abs_err": checks.errs, "tolerance_used": checks.used}
-    del a, b, plain
+    checks, recorded = hold_matmul_variants(torch, matmul_ref, lane_sizes, device, "phase 11")
+    log(f"[11 census] kernel lane's matmul variants at {lane_sizes} (tiles against the exact product, xla_dot "
+        f"against matmul_ref): {checks.n} checks, max_abs_err {checks.errs}, share of the f32 tolerance "
+        f"{checks.used}; recorded: share {recorded.used}")
+    out["matmul_variants"] = {"max_abs_err": checks.errs, "tolerance_used": checks.used,
+                              "recorded_tolerance_used": recorded.used}
 
     census_cli(["census", "plan", "--out", str(d2), *lane], device)
     secs, _ = census_cli(["queue", "work", "--out", str(d2)], device)
@@ -1453,6 +1515,316 @@ def phase_explain(torch, kmod, launches, stores, work, device="cuda", knobs=EXPL
         f"causes that differ from the CLI pass: {len(changed)}")
     if not launches["explain[kernel_variants]"]:
         sys.exit("chip_smoke: the kernel lane's explanation launched no GEMM kernel")
+    return out
+
+
+
+def read_jsonl(path):
+    return [json.loads(line) for line in Path(path).read_text().splitlines() if line.strip()]
+
+
+def write_jsonl(path, rows):
+    Path(path).write_text("".join(json.dumps(r, sort_keys=True) + "\n" for r in rows))
+
+
+def oracle_query(cache, queries, path, device):
+    """``oracle query --batch``: the verdicts of ``queries`` (written to
+    ``path``.jsonl first) in order, and the command's seconds."""
+    batch = Path(f"{path}.queries.jsonl")
+    write_jsonl(batch, queries)
+    secs, _ = census_cli(["oracle", "query", "--out", str(cache), "--batch", str(batch),
+                          "--json", f"{path}.verdicts.jsonl"], device)
+    verdicts = read_jsonl(f"{path}.verdicts.jsonl")
+    if len(verdicts) != len(queries):
+        sys.exit(f"chip_smoke: {len(queries)} oracle queries gave {len(verdicts)} verdicts")
+    return verdicts, secs
+
+
+def require_confidence(verdicts, confidence, what, enqueued=None):
+    bad = [v["uid"] for v in verdicts if v["confidence"] != confidence
+           or (enqueued is not None and v["enqueued"] != enqueued)]
+    if bad:
+        sys.exit(f"chip_smoke: {what}: {len(bad)} verdicts are not {confidence}"
+                 f"{'' if enqueued is None else f' with enqueued {enqueued}'}: {bad[:8]}")
+
+
+def pending_misses(cache):
+    """(enqueued, still pending) misses of an oracle cache, read from its files."""
+    from repro_torch.serve.cache import OracleCache
+
+    totals, pendings = OracleCache.open(str(cache)).miss_totals()
+    return sum(totals), sum(pendings)
+
+
+def serve_refresh(cache, first, second, misses, work, device, timeout=ORACLE_SERVE_TIMEOUT):
+    """``oracle serve --refresh`` with its queries on a FIFO (``--queries``):
+    ``first`` goes in, then the script waits until the refresher (a thread
+    of the serve process, draining on ``device``) has measured the
+    ``misses`` enqueued misses, then ``second`` goes in and the FIFO is
+    closed. Returns the verdicts, the hit rate the server printed and its
+    seconds; a refresh pass that failed, or a drain that does not end within
+    ``timeout`` seconds, stops the script."""
+    import errno
+
+    fifo = Path(work) / "serve_queries.fifo"
+    os.mkfifo(fifo)
+    stdout, stderr = Path(work) / "serve.stdout", Path(work) / "serve.stderr"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch", "oracle", "serve", "--out", str(cache), "--queries", str(fifo),
+           "--refresh", "--poll", "0.5", "--reload-every", "1", "--device", device]
+    t0 = time.perf_counter()
+    with open(stdout, "w") as out, open(stderr, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out, stderr=err)
+    try:
+        deadline = time.time() + timeout
+        while True:  # the writer's end opens once the server has opened the reader's
+            try:
+                fd = os.open(fifo, os.O_WRONLY | os.O_NONBLOCK)
+                break
+            except OSError as e:
+                if e.errno != errno.ENXIO or proc.poll() is not None or time.time() > deadline:
+                    raise
+                time.sleep(0.05)
+        os.set_blocking(fd, True)
+        with os.fdopen(fd, "w") as feed:
+            feed.write("".join(json.dumps(q) + "\n" for q in first))
+            feed.flush()
+            while True:
+                total, pending = pending_misses(cache)
+                if total >= misses and not pending:
+                    break
+                if proc.poll() is not None or time.time() > deadline:
+                    log(stderr.read_text()[-4000:])
+                    sys.exit(f"chip_smoke: `oracle serve --refresh` measured {total - pending} of {misses} "
+                             f"misses before {'it exited' if proc.poll() is not None else 'the deadline'}")
+                time.sleep(0.25)
+            feed.write("".join(json.dumps(q) + "\n" for q in second))
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    errors = stderr.read_text()
+    if rc != 0 or "refresh pass failed" in errors:
+        log(errors[-4000:])
+        sys.exit(f"chip_smoke: `oracle serve --refresh` exited {rc} or a refresh pass failed")
+    verdicts = read_jsonl(stdout)
+    served = re.search(r"# served (\d+) verdicts: hit rate ([0-9.]+)", errors)
+    if len(verdicts) != len(first) + len(second) or served is None:
+        sys.exit(f"chip_smoke: `oracle serve` answered {len(verdicts)} of {len(first) + len(second)} queries")
+    return verdicts, float(served.group(2)), seconds
+
+
+def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card, device="cuda", default_grid=(),
+                 active_grid=ACTIVE_GRID, miss_sizes=ORACLE_MISS_SIZES, serve_misses=SERVE_MISSES,
+                 workers=4):
+    """Phase 13: the ranking oracle and the learned cost model on the card
+    (see the module docstring). ``stores`` and ``explains`` are the CLI
+    census and explain roots of phases 11 and 12, ``default_grid`` the
+    default census's grid flags (none), ``active_grid`` the active
+    wall-clock census's, ``miss_sizes`` the kernel lane's miss sizes and
+    ``serve_misses`` the misses fed to ``oracle serve``. Returns the phase's
+    record; the hand GEMM's launches in the in-process miss drain and in the
+    active census's measured branch join ``launches`` as
+    ``oracle[kernel_variants]`` and ``active_census[kernel_variants]``, and
+    their counts by copy width are the record's ``launches_by_copy``."""
+    from collections import Counter
+
+    from repro_torch import api
+    from repro_torch.core.sweep import SweepSpec
+    from repro_torch.launch import queue as qmod
+    from repro_torch.serve.oracle import hit_rate
+
+    work = Path(work)
+    keep = OUT.parent / "oracle"
+    keep.mkdir(parents=True, exist_ok=True)
+    out = {"launches_by_copy": {}}
+
+    def say(msg):
+        log(f"[13 oracle] {msg} [{card}]")
+
+    # 1. warm from both CLI censuses and their explanations; every grid
+    #    instance answers `measured`, equal to its census record
+    caches = {}
+    for key, census in stores.items():
+        cache = work / f"oracle_{key}"
+        secs, warm = census_cli(["oracle", "warm", "--out", str(cache), "--census", str(census),
+                                 "--explain", str(explains[key])], device)
+        records = read_jsonl(Path(census) / "merged.jsonl")
+        causes = {r["uid"]: r["cause"] for r in read_jsonl(Path(explains[key]) / "merged.jsonl")}
+        verdicts, qsecs = oracle_query(cache, [{"family": r["family"], "params": r["params"]} for r in records],
+                                       work / f"grid_{key}", device)
+        require_confidence(verdicts, "measured", f"the {key} grid")
+        bad = [r["uid"] for v, r in zip(verdicts, records)
+               if v["uid"] != r["uid"] or v["ranks"] != r["ranks"] or v["is_anomaly"] != r["is_anomaly"]
+               or (r["is_anomaly"] and v["cause"] != causes.get(r["uid"]))]
+        if bad:
+            sys.exit(f"chip_smoke: {key} verdicts that differ from the census record or its cause: {bad[:8]}")
+        caches[key] = cache
+        out[f"warm_{key}"] = {"warm_seconds": secs, "query_seconds": qsecs, "queries": len(verdicts),
+                              "hit_rate": hit_rate(verdicts), "anomalies": sum(v["is_anomaly"] for v in verdicts),
+                              "entries": warm.strip()}
+        say(f"{key}: {warm.strip()[2:]} in {secs:.1f} s; {len(verdicts)} grid queries by `oracle query --batch` "
+            f"in {qsecs:.1f} s, all measured and equal to the census (ranks, verdict, cause), hit rate "
+            f"{hit_rate(verdicts):.2f}, {out[f'warm_{key}']['anomalies']} anomalies")
+
+    # 2. kernel-lane misses on the hand GEMM: model_only and enqueued, drained
+    #    by `queue work`, then measured; the same misses on a second cache
+    #    warmed from the same stores, drained by the same entry point in this
+    #    process with the GEMM's launches counted
+    misses = [{"family": "kernel_variants", "params": {"site": "matmul", "size": size, "seed": 0, "interpret": False}}
+              for size in miss_sizes]
+    checks, recorded = hold_matmul_variants(torch, matmul_ref, miss_sizes, device, "phase 13")
+    out["miss_matmul_variants"] = {"max_abs_err": checks.errs, "tolerance_used": checks.used,
+                                   "recorded_tolerance_used": recorded.used}
+    say(f"kernel-lane miss sizes' matmul variants at {list(miss_sizes)} (tiles against the exact product, "
+        f"xla_dot against matmul_ref): {checks.n} checks, max_abs_err {checks.errs}, share of the f32 "
+        f"tolerance {checks.used}; recorded: share {recorded.used}")
+    drains = {}
+    for how in ("cli", "in_process"):
+        lane = caches["kernel_lane"]
+        if how == "in_process":
+            lane = work / "oracle_kernel_lane_in_process"
+            census_cli(["oracle", "warm", "--out", str(lane), "--census", str(stores["kernel_lane"]),
+                        "--explain", str(explains["kernel_lane"])], device)
+        first, _ = oracle_query(lane, misses, work / f"miss_{how}", device)
+        require_confidence(first, "model_only", f"kernel-lane misses ({how})", enqueued=True)
+        if how == "cli":
+            secs, _ = census_cli(["queue", "work", "--out", str(lane)], device)
+        else:
+            reset_gemm_counts(kmod)
+            t0 = time.perf_counter()
+            if qmod.main(["work", "--out", str(lane), "--device", device]) != 0:
+                sys.exit("chip_smoke: the in-process `queue work` of the oracle's misses failed")
+            secs = time.perf_counter() - t0
+            launches["oracle[kernel_variants]"] = kmod.matmul_kernel.launches
+            out["launches_by_copy"]["oracle[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
+        again, _ = oracle_query(lane, misses, work / f"miss_{how}_again", device)
+        require_confidence(again, "measured", f"kernel-lane misses after `queue work` ({how})", enqueued=False)
+        total, pending = pending_misses(lane)
+        _, status = census_cli(["oracle", "status", "--out", str(lane)], device)
+        if pending or total != len(misses) or f"{total} misses enqueued, 0 pending" not in status:
+            sys.exit(f"chip_smoke: the kernel lane's cache has pending misses after `queue work`:\n{status}")
+        drains[how] = {"seconds": secs, "ranks": {str(m["params"]["size"]): v["ranks"] for m, v in zip(misses, again)},
+                       "is_anomaly": [v["is_anomaly"] for v in again]}
+        say(f"kernel-lane misses {list(miss_sizes)} (matmul, seed 0): model_only and enqueued, drained by "
+            f"{'`queue work`' if how == 'cli' else 'queue.main([work]) in this process'} in {secs:.1f} s, then "
+            f"measured with nothing pending; ranks {drains[how]['ranks']}")
+    drains["misses"] = [m["params"] for m in misses]
+    out["kernel_lane_misses"] = drains
+    if not launches.get("oracle[kernel_variants]"):
+        sys.exit("chip_smoke: the oracle's miss drain launched no GEMM kernel")
+    say(f"GEMM kernel launches in the in-process miss drain: {launches['oracle[kernel_variants]']}")
+
+    # 3. `oracle serve --refresh` on the default cache: grid queries and
+    #    misses (a chain miss among them: a CUDA graph captured in the
+    #    refresher's thread), the misses asked again once refreshed
+    records = read_jsonl(Path(stores["default"]) / "merged.jsonl")
+    grid = [{"family": r["family"], "params": r["params"]} for r in records[::20]]
+    first = grid[: len(grid) // 2] + list(serve_misses) + grid[len(grid) // 2:]
+    second = grid[:1] + list(serve_misses)  # the first query makes the server reload its cache
+    verdicts, rate, secs = serve_refresh(caches["default"], first, second, len(serve_misses), work, device)
+    require_confidence(verdicts[len(first) + 1:], "measured", "the misses refreshed by `oracle serve`")
+    missed = [v for v in verdicts[: len(first)] if v["enqueued"]]
+    if len(missed) != len(serve_misses):
+        sys.exit(f"chip_smoke: `oracle serve` enqueued {len(missed)} of {len(serve_misses)} misses")
+    out["serve"] = {"seconds": secs, "queries": len(verdicts), "hit_rate_printed": rate,
+                    "first_pass": [v["confidence"] for v in verdicts[: len(first)]],
+                    "misses": [m["params"] for m in serve_misses]}
+    say(f"`oracle serve --refresh` on the default cache: {len(verdicts)} queries in {secs:.1f} s, hit rate "
+        f"printed {rate:.2f}; {len(serve_misses)} misses ({', '.join(m['family'] for m in serve_misses)}) refreshed "
+        f"by its refresher thread on the card and answered measured afterwards")
+
+    # 4. predict on the default grid: a cost_model census on this host, the
+    #    model trained and evaluated on it, and an active census that keeps
+    #    exactly the full census's anomaly set
+    full, active, model = work / "predict_full", work / "predict_active", work / "model.json"
+    secs_full, _ = census_cli(["census", "run", "--out", str(full), "--workers", str(workers),
+                               "--backend", "cost_model", *default_grid], device)
+    _, trained = census_cli(["predict", "train", "--census", str(full), "--out", str(model)], device)
+    _, table = census_cli(["predict", "eval", "--census", str(full), "--model", str(model)], device)
+    secs_active, _ = census_cli(["census", "run", "--out", str(active), "--workers", str(workers),
+                                 "--backend", "cost_model", "--predictor", str(model), *default_grid], device)
+    doc = json.loads(model.read_text())
+    full_rows, active_rows = read_jsonl(full / "merged.jsonl"), read_jsonl(active / "merged.jsonl")
+    anomalies = sorted(r["uid"] for r in full_rows if r["is_anomaly"])
+    if [r["uid"] for r in active_rows] != [r["uid"] for r in full_rows] \
+            or sorted(r["uid"] for r in active_rows if r["is_anomaly"]) != anomalies:
+        sys.exit("chip_smoke: the active cost_model census does not keep the full census's anomaly set")
+    n_pred = sum(r.get("provenance") == "predicted" for r in active_rows)
+    out["predict_cost_model"] = {"rows": doc["n_train"], "residual_sigma": doc["residual_sigma"],
+                                 "digest": doc["train_digest"], "instances": len(full_rows),
+                                 "anomalies": len(anomalies), "predicted": n_pred,
+                                 "measured": len(active_rows) - n_pred, "full_seconds": secs_full,
+                                 "active_seconds": secs_active}
+    shutil.copy(model, keep / "model_cost_model.json")
+    say(f"predict train on the default grid's cost_model census: {trained.strip()[2:]}")
+    log("    " + table.strip().replace("\n", "\n    "))
+    say(f"active cost_model census of the default grid: {n_pred} predicted, {len(active_rows) - n_pred} measured "
+        f"of {len(active_rows)}; the full census's {len(anomalies)} anomalies kept exactly; {secs_active:.1f} s "
+        f"against {secs_full:.1f} s for the full census ({workers} workers)")
+
+    # 5. an active wall-clock census on the card, gated by a model trained
+    #    with --machine cpu-1core on a cost_model census of the same grid
+    cm, cpu_model = work / "active_grid_cost_model", work / "model_cpu_1core.json"
+    census_cli(["census", "run", "--out", str(cm), "--workers", str(workers), "--backend", "cost_model",
+                *active_grid], device)
+    _, trained = census_cli(["predict", "train", "--census", str(cm), "--out", str(cpu_model),
+                             "--machine", "cpu-1core"], device)
+    runs = {}
+    for key, extra in (("active", ["--predictor", str(cpu_model)]), ("full", [])):
+        root = work / f"wall_clock_{key}"
+        secs, _ = census_cli(["census", "run", "--out", str(root), "--workers", "1", "--backend", "wall_clock",
+                              *extra, *active_grid], device)
+        rows = read_jsonl(root / "merged.jsonl")
+        predicted = [r for r in rows if r.get("provenance") == "predicted"]
+        runs[key] = {"seconds": secs, "instances": len(rows), "predicted": len(predicted),
+                     "measured": len(rows) - len(predicted),
+                     "predicted_by_family": dict(Counter(r["family"] for r in predicted)),
+                     "anomalies": sum(r["is_anomaly"] for r in rows)}
+    act = runs["active"]
+    kv_predicted = act["predicted_by_family"].get("kernel_variants", 0)
+    if not act["predicted"] or not act["measured"] or kv_predicted:
+        sys.exit(f"chip_smoke: the active wall-clock census predicted {act['predicted']} and measured "
+                 f"{act['measured']} ({kv_predicted} kernel_variants predicted); both branches must run and "
+                 "the GEMM's tiles be measured")
+    spec = SweepSpec.load(str(work / "wall_clock_active" / "spec.json"))
+    reset_gemm_counts(kmod)
+    t0 = time.perf_counter()
+    api.run_census(str(work / "wall_clock_active_in_process"), spec, device=device)
+    secs = time.perf_counter() - t0
+    launches["active_census[kernel_variants]"] = kmod.matmul_kernel.launches
+    out["launches_by_copy"]["active_census[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
+    rows = read_jsonl(work / "wall_clock_active_in_process" / "merged.jsonl")
+    n_pred = sum(r.get("provenance") == "predicted" for r in rows)
+    if n_pred != act["predicted"] or not launches["active_census[kernel_variants]"]:
+        sys.exit(f"chip_smoke: the in-process active census predicted {n_pred} (the CLI's {act['predicted']}) "
+                 f"and launched {launches['active_census[kernel_variants]']} GEMM kernels")
+    runs["active_in_process"] = {"seconds": secs, "predicted": n_pred, "measured": len(rows) - n_pred,
+                                 "gemm_launches": launches["active_census[kernel_variants]"]}
+    out["active_wall_clock"] = {"grid": list(active_grid), "model": trained.strip(), **runs}
+    say(f"model for the gate: {trained.strip()[2:]}")
+    say(f"active wall-clock census ({' '.join(active_grid)}): {act['predicted']} predicted "
+        f"({act['predicted_by_family']}), {act['measured']} measured on the card in {act['seconds']:.1f} s; the "
+        f"full wall-clock census of the same grid {runs['full']['seconds']:.1f} s; in process (api.run_census) "
+        f"{secs:.1f} s with {launches['active_census[kernel_variants]']} GEMM kernel launches in the measured branch")
+
+    # 6. the learned tier: a cache warmed with the cpu-1core model answers a
+    #    kernel-lane miss `learned_model` and still enqueues it
+    learned = work / "oracle_learned"
+    census_cli(["oracle", "warm", "--out", str(learned), "--census", str(stores["kernel_lane"]),
+                "--model", str(cpu_model)], device)
+    miss = {"family": "kernel_variants",
+            "params": {"site": "matmul", "size": miss_sizes[0], "seed": 2, "interpret": False}}
+    (verdict,), _ = oracle_query(learned, [miss], work / "learned", device)
+    require_confidence([verdict], "learned_model", "the learned tier's miss", enqueued=True)
+    if not {"flip_prob", "model_confidence"} <= set(verdict) or pending_misses(learned) != (1, 1):
+        sys.exit(f"chip_smoke: the learned tier's verdict lacks flip_prob/model_confidence or was not enqueued: "
+                 f"{verdict}")
+    out["learned"] = {k_: verdict[k_] for k_ in ("flip_prob", "model_confidence", "ranks", "is_anomaly")}
+    say(f"learned tier: kernel-lane miss {miss['params']} answered learned_model, flip_prob "
+        f"{verdict['flip_prob']}, model_confidence {verdict['model_confidence']}, enqueued")
     return out
 
 
@@ -1871,10 +2243,18 @@ def main():
     t_explain = time.perf_counter()
     details["explain"] = phase_explain(torch, kmod, launches, stores, census_work)
     details["explain"]["seconds"] = time.perf_counter() - t_explain
-    shutil.rmtree(census_work)
     log(f"[12 explain] phase 12 took {details['explain']['seconds']:.1f} s")
     gemm_launches["explain[kernel_variants]"] = launches["explain[kernel_variants]"]
     launches_by_copy["explain[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
+    t_oracle = time.perf_counter()
+    explains = {key: Path(census_work) / f"explain_{key}" for key in stores}
+    details["oracle"] = phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, census_work, card)
+    details["oracle"]["seconds"] = time.perf_counter() - t_oracle
+    shutil.rmtree(census_work)
+    log(f"[13 oracle] phase 13 took {details['oracle']['seconds']:.1f} s [{card}]")
+    for path_ in ("oracle[kernel_variants]", "active_census[kernel_variants]"):
+        gemm_launches[path_] = launches[path_]
+        launches_by_copy[path_] = details["oracle"]["launches_by_copy"][path_]
     details["launches"] = launches
 
     # ---------------------------------------------------------- results --

@@ -9,9 +9,9 @@ DESIGN.md §4).
 This module also owns the repo's ONE shape-bucketing rule
 (:func:`shape_bucket` / :func:`bucket_bounds`): log-spaced instance-size
 buckets shared by the census report tables
-(:func:`repro_torch.core.sweep.size_bucket` delegates here) and, once the
-serving oracle is ported, its cache keys, so "which bucket does size n fall
-in" has exactly one answer everywhere. A copy of the reference's
+(:func:`repro_torch.core.sweep.size_bucket` delegates here) and the
+serving oracle's cache keys (:mod:`repro_torch.serve.cache`), so "which
+bucket does size n fall in" has exactly one answer everywhere. A copy of the reference's
 ``repro.configs.shapes``; the architecture configs are not ported yet.
 """
 

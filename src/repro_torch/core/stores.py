@@ -21,8 +21,8 @@ The built-in kinds (sweep, explain, and the serving oracle's ranking
 cache — ``ocache.json``) are registered at import time; a future kind
 (e.g. a replay campaign) registers itself here and both the queue and
 fsck pick it up with zero changes. A copy of the reference's
-``repro.core.stores``; of its kinds the port drains the sweep and explain
-stores so far.
+``repro.core.stores``; a queue adapter also takes the device its
+wall-clock workloads run on.
 """
 
 from __future__ import annotations
@@ -98,24 +98,8 @@ def detect_store_kind(out: str) -> Optional[StoreKind]:
 # ---------------------------------------------------------- built-in kinds ---
 # Lazy imports inside the callables: stores.py must stay importable from
 # both repro_torch.core.sweep consumers and repro_torch.launch without
-# cycles. All three spec files are registered, so detection and
-# AmbiguousStore behave as in the reference; the oracle kind refuses until
-# its modules are ported (fsck then falls back to scanning the shard
-# files, as it does for a damaged spec).
-
-
-class NotPortedError(NotImplementedError):
-    """A surface or store kind of the reference that the port does not
-    have yet; the message names its ROADMAP item."""
-
-
-#: unported surface -> its item in ROADMAP.md's Queue 1
-NOT_PORTED = {"oracle": 5, "predict": 6}
-
-
-def not_ported(surface: str) -> str:
-    """The one message for an unported surface."""
-    return f"{surface} is not ported yet (ROADMAP Queue 1 item {NOT_PORTED[surface]})"
+# cycles, and a shard-count probe must not pay the explain subsystem's
+# import.
 
 
 def _sweep_n_shards(out: str) -> int:
@@ -142,11 +126,16 @@ def _explain_queue(out: str, device: str = "cuda") -> Any:
     return ExplainQueue(out, device=device)
 
 
-def _refuse(surface: str) -> Callable[..., Any]:
-    def refuse(out: str, *args: Any, **kwargs: Any) -> Any:
-        raise NotPortedError(f"{out}: a {surface} store; {not_ported(surface)}")
+def _oracle_n_shards(out: str) -> int:
+    from repro_torch.serve.cache import SPEC_FILE, OracleCacheSpec
 
-    return refuse
+    return OracleCacheSpec.load(os.path.join(out, SPEC_FILE)).n_shards
+
+
+def _oracle_queue(out: str, device: str = "cuda") -> Any:
+    from repro_torch.serve.oracle import OracleQueue
+
+    return OracleQueue(out, device=device)
 
 
 register_store_kind(StoreKind(
@@ -159,5 +148,5 @@ register_store_kind(StoreKind(
 ))
 register_store_kind(StoreKind(
     name="oracle", spec_file="ocache.json",
-    load_n_shards=_refuse("oracle"), make_queue=_refuse("oracle"),
+    load_n_shards=_oracle_n_shards, make_queue=_oracle_queue,
 ))

@@ -151,9 +151,8 @@ class SweepSpec:
     #: power loss / host crash too. Off by default: fsync serializes all
     #: workers behind the journal on many filesystems.
     fsync: bool = False
-    #: active-census gate: path to a trained predict model (JSON; the
-    #: port refuses such a spec until predict is ported — see
-    #: :func:`run_shard`). When set, instances whose predicted ranking confidence
+    #: active-census gate: path to a trained :mod:`repro_torch.predict` model
+    #: (JSON). When set, instances whose predicted ranking confidence
     #: clears ``predict_threshold`` are emitted as
     #: ``provenance="predicted"`` records WITHOUT measurement; the rest
     #: measure normally. Living in the spec (not a CLI flag) means every
@@ -960,6 +959,7 @@ def run_chunked_campaign(
     heartbeat: Optional[Callable[..., None]] = None,
     timings: Optional[Dict[str, float]] = None,
     faults: Optional[FaultPlan] = None,
+    predictor: Optional[Callable[[str], Optional[Dict[str, Any]]]] = None,
 ) -> bool:
     """The shared chunk/resume/save/append loop behind every sharded
     campaign (census shards AND anomaly explanations — one copy of the
@@ -995,8 +995,17 @@ def run_chunked_campaign(
     poked once per engine step (sigkill / stall ops — see
     :mod:`repro_torch.core.faults`).
 
-    The reference's ``predictor`` gate (an active census) comes with the
-    slice that ports predict.
+    ``predictor`` is the active-census gate: called once per todo uid
+    BEFORE any chunk is built, it returns either a complete
+    ``provenance="predicted"`` record (the instance is recorded without
+    measurement) or ``None`` (measure it normally). Predicted records
+    commit through the ordinary append path — CRC'd, deduped,
+    manifest-tallied — and the gate runs before chunking on every
+    (re)entry, so a killed active census resumes byte-identically: the
+    remaining todo re-predicts to the same records, and engine chunks
+    only ever contain gate-rejected uids. The skipped count is announced
+    via ``progress`` and lands in the manifest's per-family ``predicted``
+    tallies — never silent.
     """
     say = progress or (lambda msg: None)
     beat = heartbeat or (lambda *a: None)
@@ -1005,6 +1014,29 @@ def run_chunked_campaign(
     total = len(todo_uids)
     todo = [u for u in todo_uids if u not in completed]
     steps_left = max_steps
+
+    if predictor is not None and todo:
+        t0 = time.perf_counter()
+        predicted: List[Dict[str, Any]] = []
+        remaining: List[str] = []
+        for uid in todo:
+            beat()
+            rec = predictor(uid)
+            if rec is None:
+                remaining.append(uid)
+            else:
+                predicted.append(rec)
+        t["predict_s"] = t.get("predict_s", 0.0) + (time.perf_counter() - t0)
+        if predicted:
+            beat(True)  # prove ownership right before the commit
+            t0 = time.perf_counter()
+            store.append_records(predicted)
+            t["append_s"] = t.get("append_s", 0.0) + (time.perf_counter() - t0)
+            t["predicted"] = t.get("predicted", 0.0) + len(predicted)
+            completed.update(r["uid"] for r in predicted)
+            say(f"{label}: {len(predicted)}/{total} instances predicted "
+                f"without measurement ({len(remaining)} to measure)")
+        todo = remaining
 
     while True:
         engine: Optional[ExperimentEngine] = None
@@ -1105,19 +1137,11 @@ def run_shard(
     lease hook (see :func:`run_chunked_campaign`). ``faults`` defaults to
     the environment's chaos plan (:func:`repro_torch.core.faults.active_plan`).
     ``device`` is where the wall-clock backend builds and times its
-    workloads (the deterministic backends touch no device).
-
-    A spec with ``predictor_model`` set (an active census) is refused:
-    predict is not ported yet, and measuring every instance instead would
-    silently be a different census.
+    workloads (the deterministic backends touch no device). A spec with
+    ``predictor_model`` set (an active census) installs the predict gate:
+    the instances it skips are predicted on the host, the rest measured on
+    ``device``.
     """
-    if spec.predictor_model:
-        from .stores import NotPortedError, not_ported
-
-        raise NotPortedError(
-            f"spec {spec.name!r} names predictor model {spec.predictor_model!r}; "
-            f"{not_ported('predict')} — plan the census without --predictor"
-        )
     if faults is None:
         faults = active_plan()
     store = ShardStore(root, shard, fsync=spec.fsync, faults=faults).open()
@@ -1125,6 +1149,12 @@ def run_shard(
     rebuild = None
     if spec.backend == "wall_clock":
         rebuild = lambda uids: _wall_clock_timers(spec, instances, uids, device)
+    predictor = None
+    if spec.predictor_model:
+        # lazy: repro_torch.predict imports back into this module
+        from repro_torch.predict.active import census_gate
+
+        predictor = census_gate(spec, instances)
     timings: Dict[str, float] = {}
     run_chunked_campaign(
         store,
@@ -1141,6 +1171,7 @@ def run_shard(
         heartbeat=heartbeat,
         timings=timings,
         faults=faults,
+        predictor=predictor,
     )
     if timings:
         store.add_timings(timings)

@@ -8,10 +8,11 @@ duplicated):
     python -m repro_torch explain run --census DIR --out E    # AnomalyExplainer
     python -m repro_torch queue   work --out DIR              # pull-based drain
     python -m repro_torch fsck    --out DIR [--dry-run]       # repair any store
+    python -m repro_torch oracle  warm --out C --census DIR   # ranking service
+    python -m repro_torch predict train --census DIR --out M  # learned cost model
 
-The reference's ``oracle`` and ``predict`` surfaces are named too; each
-says which ROADMAP item ports it and exits 2. The reference's
-legacy ``python -m repro.launch.X`` aliases have no counterpart here.
+The reference's legacy ``python -m repro.launch.X`` aliases have no
+counterpart here.
 
 Dispatch is manual (argv[0] lookup, remainder forwarded verbatim) rather
 than argparse-subparser composition: every surface's ``main(argv, prog=)``
@@ -49,14 +50,16 @@ def _explain_main(argv: List[str], prog: str) -> int:
     return main(argv, prog=prog)
 
 
-def _not_ported(surface: str) -> Callable[[List[str], str], int]:
-    def refuse(argv: List[str], prog: str) -> int:
-        from repro_torch.core.stores import not_ported
+def _oracle_main(argv: List[str], prog: str) -> int:
+    from repro_torch.launch.oracle import main
 
-        print(f"{prog}: {not_ported(surface)}", file=sys.stderr)
-        return 2
+    return main(argv, prog=prog)
 
-    return refuse
+
+def _predict_main(argv: List[str], prog: str) -> int:
+    from repro_torch.launch.predict import main
+
+    return main(argv, prog=prog)
 
 
 #: surface name -> (dispatcher, one-line help). Lazy imports keep
@@ -70,10 +73,10 @@ SURFACES: "dict[str, Tuple[Callable[[List[str], str], int], str]]" = {
               "drain a campaign store with pull-based multi-host workers"),
     "fsck": (_fsck_main,
              "classify/repair/quarantine damage in any campaign store"),
-    "oracle": (_not_ported("oracle"),
-               "the ranking-as-a-service cache (not ported yet)"),
-    "predict": (_not_ported("predict"),
-                "the learned cost model (not ported yet)"),
+    "oracle": (_oracle_main,
+               "warm/query/serve the ranking-as-a-service cache"),
+    "predict": (_predict_main,
+                "train/apply the learned cost model (active censuses)"),
 }
 
 

@@ -9,10 +9,9 @@ rows it claims to have. This tool is the repair path:
     PYTHONPATH=src python -m repro_torch fsck --out DIR [--dry-run]
 
 (also reachable as ``repro_torch census fsck`` / ``repro_torch explain
-fsck`` / ``repro_torch queue fsck`` — all routes share one flag set,
-:func:`repro_torch.launch.cliutil.add_fsck_args`). A store of a kind the
-port has not ported yet (oracle) is still checked: its shard count comes
-from the shard files on disk, as for a damaged spec.
+fsck`` / ``repro_torch queue fsck`` / ``repro_torch oracle fsck`` — all
+five routes share one flag set,
+:func:`repro_torch.launch.cliutil.add_fsck_args`).
 
 For every shard it classifies damage and acts:
 
@@ -155,15 +154,14 @@ def _store_kind(out: str) -> str:
 
 def _detect_n_shards(out: str) -> int:
     """Shard count from the spec when possible, else from the files on
-    disk — fsck must work even when the spec itself is the casualty, or
-    belongs to a store kind the port has not ported yet."""
-    from repro_torch.core.stores import AmbiguousStore, NotPortedError, detect_store_kind
+    disk — fsck must work even when the spec itself is the casualty."""
+    from repro_torch.core.stores import AmbiguousStore, detect_store_kind
 
     try:
         kind = detect_store_kind(out)
         if kind is not None:
             return kind.load_n_shards(out)
-    except (AmbiguousStore, NotPortedError, OSError, ValueError, KeyError, TypeError):
+    except (AmbiguousStore, OSError, ValueError, KeyError, TypeError):
         pass
     highest = -1
     for fn in os.listdir(out):

@@ -21,9 +21,11 @@ run, because a lease takeover is literally the kill/resume path.
 
 The queue resolves the store root's campaign kind through the store-kind
 registry (:mod:`repro_torch.core.stores`): ``spec.json`` = a
-DiscriminantSweep census, ``espec.json`` = an AnomalyExplainer campaign (an
-oracle store is refused as not ported yet). A wall-clock census, or the
-explanation of one, runs its workloads on ``--device`` (default ``cuda``);
+DiscriminantSweep census, ``espec.json`` = an AnomalyExplainer campaign,
+``ocache.json`` = a ranking-oracle cache whose enqueued misses are
+measured. A wall-clock census, the explanation of one, or the misses of
+an oracle cache over one, runs its workloads on ``--device`` (default
+``cuda``);
 ``queue run`` gives each simulated host a GPU of its own, as ``census run``
 does its workers. On-disk
 layout per shard (all under ``--out``):
@@ -162,14 +164,8 @@ def open_queue(out: str, device: str = "cuda"):
     """The store's adapter, auto-detected through the store-kind registry
     (:mod:`repro_torch.core.stores`): which registered spec file the root
     holds decides the drain path, and a root holding more than one refuses
-    rather than guessing. A kind the port has not ported yet refuses too."""
-    from repro_torch.core.stores import (
-        AmbiguousStore,
-        NotPortedError,
-        detect_store_kind,
-        store_kinds,
-    )
-
+    rather than guessing."""
+    from repro_torch.core.stores import AmbiguousStore, detect_store_kind, store_kinds
 
     try:
         kind = detect_store_kind(out)
@@ -181,10 +177,7 @@ def open_queue(out: str, device: str = "cuda"):
             f"{out} holds no campaign spec — known store kinds: {known}; "
             "plan a campaign there first"
         )
-    try:
-        return kind.make_queue(out, device=device)
-    except NotPortedError as err:
-        raise SystemExit(str(err)) from None
+    return kind.make_queue(out, device=device)
 
 
 # ------------------------------------------------------------- the worker ---

@@ -1,8 +1,9 @@
 """The census (DiscriminantSweep) anomaly-rate tables in the style of the
-paper's Figs. 5-7 and the AnomalyExplainer's cause tables — a copy of the
-census and explain halves of the reference's ``repro.launch.report_md``.
-The roofline and perf tables of the reference's dry runs, and its predict
-tables, are not part of the port yet."""
+paper's Figs. 5-7, the learned cost model's prediction-error tables and
+the AnomalyExplainer's cause tables — a copy of the census, predict and
+explain parts of the reference's ``repro.launch.report_md``. The roofline
+and perf tables of the reference's dry runs have no counterpart in the
+port."""
 
 
 def _census_agg_row(label: str, a: dict) -> str:
@@ -83,6 +84,41 @@ def census_tables(records, name: str = "census") -> str:
     for fam, buckets in s["by_family_size"].items():
         for bucket, a in buckets.items():
             out.append(_census_agg_row(f"{fam} `{bucket}`", a))
+    return "\n".join(out) + "\n"
+
+
+def predict_tables(rows, name: str = "predict") -> str:
+    """Markdown prediction-error tables from
+    :func:`repro_torch.predict.active.prediction_errors` rows: per
+    (family, machine) the mean absolute log10-time error against the
+    deterministic ground truth, winner/anomaly agreement with the census
+    verdicts, and the fraction the confidence gate would skip."""
+    groups = {}
+    for r in rows:
+        groups.setdefault((r["family"], r["machine"]), []).append(r)
+    n_skip = sum(1 for r in rows if r["skipped"])
+    out = [
+        f"## Predictor `{name}` — learned cost model vs the census",
+        "",
+        f"{len(rows)} instances scored; the confidence gate would skip "
+        f"{n_skip} ({100.0 * n_skip / max(len(rows), 1):.1f}%) without "
+        "measurement.",
+        "",
+        "| family | machine | n | mean |Δlog10 t| | winner match | "
+        "anomaly match | would skip |",
+        "|---|---|---|---|---|---|---|",
+    ]
+    for (fam, machine), g in sorted(groups.items()):
+        errs = [r["abs_dlog10_t"] for r in g if r["abs_dlog10_t"] is not None]
+        err = f"{sum(errs) / len(errs):.4f}" if errs else "—"
+        wins = sum(1 for r in g if r["winner_match"])
+        anoms = sum(1 for r in g if r["anomaly_match"])
+        skips = sum(1 for r in g if r["skipped"])
+        out.append(
+            f"| {fam} | {machine} | {len(g)} | {err} | "
+            f"{wins}/{len(g)} | {anoms}/{len(g)} | "
+            f"{100.0 * skips / len(g):.1f}% |"
+        )
     return "\n".join(out) + "\n"
 
 

@@ -40,9 +40,11 @@ point any number of ``python -m repro_torch queue work --out DIR`` processes at
 the same (shared-filesystem) store — shards are leased dynamically rather
 than assigned (:mod:`repro_torch.launch.queue`).
 
-An ACTIVE census (``--predictor MODEL.json``) is refused until predict is
-ported (ROADMAP Queue 1 item 6); the port never measures every instance of
-such a plan instead.
+An ACTIVE census (``--predictor MODEL.json``) consults a trained cost
+model (:mod:`repro_torch.predict`) before measuring: instances whose
+predicted ranking confidence clears ``--predict-threshold`` are committed
+as ``predicted``-provenance records without measurement; the skip
+fraction is surfaced in ``status`` and the report, never silent.
 
 A copy of the reference's ``repro.launch.sweep``: the plans it writes and
 the records its workers append are the reference's byte for byte.
@@ -59,7 +61,6 @@ from typing import Dict, List, Optional
 
 import repro_torch
 from repro_torch.core.family import family_names, get_family
-from repro_torch.core.stores import not_ported
 from repro_torch.launch.cliutil import add_device_arg, add_fsck_args, fsck_command
 from repro_torch.core.sweep import (
     ShardStore,
@@ -140,16 +141,15 @@ def add_grid_args(p: argparse.ArgumentParser) -> None:
                    help="fsync record batches (survive power loss, not just "
                    "SIGKILL; serializes workers on many filesystems)")
     g.add_argument("--predictor", default="",
-                   help="trained cost model JSON for an ACTIVE census; refused "
-                   "until predict is ported (ROADMAP Queue 1 item 6)")
+                   help="trained cost model JSON (python -m repro_torch predict "
+                   "train); makes the census ACTIVE — instances whose "
+                   "predicted ranking confidence clears --predict-threshold "
+                   "are emitted as predicted records instead of measured")
     g.add_argument("--predict-threshold", type=float, default=0.95,
                    help="confidence needed to skip measuring an instance")
 
 
 def spec_from_args(args: argparse.Namespace) -> SweepSpec:
-    if args.predictor:
-        raise SystemExit(f"--predictor: {not_ported('predict')}; plan the "
-                         "census without it")
     families: Dict[str, Dict] = {}
     chain_grid = get_family("chain").grid_from_args(args)
     if chain_grid is not None:

@@ -8,8 +8,6 @@ output's scale). The wall-clock backend runs here on the CPU
 (``device="cpu"``: every wrapper takes its plain version), and every
 refusal the port adds is held to its message."""
 
-import os
-import re
 from pathlib import Path
 
 import numpy as np
@@ -22,7 +20,6 @@ import repro_torch.core.sweep as port_sweep  # noqa: E402
 from repro.core.family import get_family as ref_family  # noqa: E402
 from repro.explain import decompose as ref_decompose  # noqa: E402
 from repro_torch.core.family import family_names, get_family  # noqa: E402
-from repro_torch.core.stores import NotPortedError  # noqa: E402
 from repro_torch.explain import decompose as port_decompose  # noqa: E402
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "census_small.jsonl"
@@ -290,11 +287,22 @@ def test_cuda_device_without_a_card_refuses(monkeypatch):
 
 
 def test_predictor_spec_refused(tmp_path):
-    spec = port_sweep.SweepSpec(families={"bilinear": {"sizes": [16]}},
-                                predictor_model="model.json")
-    with pytest.raises(NotPortedError, match=re.escape("ROADMAP Queue 1 item 6") + ".*without --predictor"):
-        port_sweep.run_shard(spec, str(tmp_path), 0, device="cpu")
-    assert not os.listdir(tmp_path)  # refused before the store was opened
+    """A spec with ``predictor_model`` (an active census) runs and predicts
+    the instances its model is sure of, and its store is the reference's
+    byte for byte. The name is the refusal test's that this one replaced,
+    kept so that its history stays traceable."""
+    from repro_torch.predict.model import train_model
+
+    families = {"solve": {"sizes": [16, 32], "per_size": 3}, "bilinear": {"sizes": [16], "per_size": 2}}
+    full, _ = _run(port_sweep, dict(families=families, max_measurements=6), tmp_path / "full", device="cpu")
+    model = train_model(full, port_sweep.merge_shards(full, str(tmp_path / "full"))).save(
+        str(tmp_path / "model.json"))
+    kwargs = dict(families=families, max_measurements=6, predictor_model=model)
+    spec, _ = _run(port_sweep, kwargs, tmp_path / "port", device="cpu")
+    _run(ref_sweep, kwargs, tmp_path / "ref")
+    records = port_sweep.merge_shards(spec, str(tmp_path / "port"))
+    assert {r["family"] for r in records if r.get("provenance") == "predicted"} == {"solve"}
+    assert _store_bytes(tmp_path / "port", spec.n_shards) == _store_bytes(tmp_path / "ref", spec.n_shards)
 
 
 def test_explain_tables_equal_reference_without_records():

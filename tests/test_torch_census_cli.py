@@ -2,8 +2,7 @@
 against the reference's (``python -m repro``): a CLI census, a SIGKILLed
 and resumed one, a two-host queue drain and an fsck repair must leave the
 stores the reference leaves, byte for byte. Also what the port adds: its
-workers are ``repro_torch`` processes, one per GPU on wall clock, and the
-surfaces it has not ported refuse with the ROADMAP item that ports them.
+workers are ``repro_torch`` processes, one per GPU on wall clock.
 Every subprocess carries its own timeout; no test asserts a time."""
 
 import json
@@ -173,18 +172,26 @@ def _store_bytes(root):
 
 
 def test_fsck_cli_on_an_unported_store_kind_scans_shard_files(tmp_path):
-    """An oracle store (``ocache.json``) is still checked: the shard count
-    comes from the shard files, as for a damaged spec. (An explain store,
-    ported now, is checked by its spec: tests/test_torch_explain_cli.py.)"""
-    root = tmp_path / "oracle"
-    root.mkdir()
-    (root / "ocache.json").write_text("{}")
-    port_sweep.ShardStore(str(root), 1).open().append_records([{"uid": "a", "index": 0}])
-    with open(root / "shard-0001.jsonl", "ab") as fh:
-        fh.write(b"{torn")
-    out = _cli("repro_torch", ["fsck", "--out", str(root)], timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert "(oracle, 2 shards)" in out.stdout and "[torn_tail]" in out.stdout
+    """fsck on a damaged oracle store (``ocache.json`` of ``{}``) takes the
+    shard count from its spec (the default 4) and prints and repairs what
+    the reference's fsck does on the same root. The name is the refusal
+    test's that this one replaced, kept so that its history stays
+    traceable."""
+    outs = {}
+    for package in ("repro_torch", "repro"):
+        root = tmp_path / package
+        root.mkdir()
+        (root / "ocache.json").write_text("{}")
+        port_sweep.ShardStore(str(root), 1).open().append_records([{"uid": "a", "index": 0}])
+        with open(root / "shard-0001.jsonl", "ab") as fh:
+            fh.write(b"{torn")
+        out = subprocess.run([sys.executable, "-m", package, "fsck", "--out", "."], env=_env(), cwd=root,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        outs[package] = out.stdout
+    assert outs["repro_torch"] == outs["repro"]
+    assert "(oracle, 4 shards)" in outs["repro"] and "[torn_tail]" in outs["repro"]
+    assert _store_bytes(tmp_path / "repro_torch") == _store_bytes(tmp_path / "repro")
 
 
 # ------------------------------------------------------ what the port adds ---
@@ -242,22 +249,43 @@ def test_wall_clock_cpu_and_deterministic_censuses_take_any_worker_count(monkeyp
 
 
 def test_census_plan_refuses_a_predictor(tmp_path):
-    with pytest.raises(SystemExit, match="predict is not ported yet"):
-        port_launch.main(["plan", "--out", str(tmp_path), "--predictor", "m.json"])
-    assert not (tmp_path / "spec.json").exists()
+    """``census plan --predictor`` plans an active census and writes the
+    reference's ``spec.json``. The name is the refusal test's that this one
+    replaced, kept so that its history stays traceable."""
+    import repro.launch.sweep as ref_launch
+
+    args = ["plan", "--predictor", "m.json", "--predict-threshold", "0.9"] + SMALL_GRID
+    assert port_launch.main(args + ["--out", str(tmp_path / "port")]) == 0
+    assert ref_launch.main(args + ["--out", str(tmp_path / "ref")]) == 0
+    spec = (tmp_path / "port" / "spec.json").read_bytes()
+    assert spec == (tmp_path / "ref" / "spec.json").read_bytes()
+    assert json.loads(spec)["predictor_model"] == "m.json"
 
 
-@pytest.mark.parametrize("surface,item", [("oracle", 5), ("predict", 6)])
-def test_unported_surfaces_say_which_item_ports_them(surface, item, capsys):
-    assert cli.main([surface, "run", "--out", "x"]) == 2
-    assert f"{surface} is not ported yet (ROADMAP Queue 1 item {item})" in capsys.readouterr().err
+@pytest.mark.parametrize("surface", ["oracle", "predict"])
+def test_unported_surfaces_say_which_item_ports_them(surface, capsys):
+    """``oracle --help`` and ``predict --help`` dispatch to their parsers
+    and exit 0. The name is the refusal test's that this one replaced, kept
+    so that its history stays traceable."""
+    with pytest.raises(SystemExit) as done:
+        cli.main([surface, "--help"])
+    assert done.value.code == 0
+    assert capsys.readouterr().out.startswith(f"usage: repro_torch {surface}")
 
 
-@pytest.mark.parametrize("spec_file,item", [("ocache.json", 5)])
-def test_queue_refuses_an_unported_store_kind(tmp_path, spec_file, item):
-    (tmp_path / spec_file).write_text("{}")
-    with pytest.raises(SystemExit, match=f"item {item}"):
-        port_queue.open_queue(str(tmp_path))
+def test_queue_refuses_an_unported_store_kind(tmp_path):
+    """An oracle cache (``ocache.json``) opens as the oracle's queue, with
+    its spec's shard count, on the device asked for. The name is the
+    refusal test's that this one replaced, kept so that its history stays
+    traceable."""
+    from repro_torch.serve.cache import OracleCache, OracleCacheSpec
+    from repro_torch.serve.oracle import OracleQueue
+
+    port_sweep.SweepSpec(families={"bilinear": {"sizes": [16]}}, n_shards=1).save(
+        str(tmp_path / "spec.json"))
+    OracleCache.create(str(tmp_path / "cache"), OracleCacheSpec(census=str(tmp_path), n_shards=3))
+    queue = port_queue.open_queue(str(tmp_path / "cache"), device="cpu")
+    assert isinstance(queue, OracleQueue) and queue.device == "cpu" and queue.n_shards == 3
 
 
 def test_queue_refuses_an_ambiguous_store(tmp_path):

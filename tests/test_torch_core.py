@@ -210,6 +210,9 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.expressions.generalized\n"
         "import repro_torch.explain, repro_torch.explain.runner, repro_torch.roofline\n"
         "import repro_torch.graphs, repro_torch.launch.explain\n"
+        "import repro_torch.predict, repro_torch.serve.oracle, repro_torch.api\n"
+        "import repro_torch.launch.oracle, repro_torch.launch.predict\n"
+        "from repro_torch import run_census, query\n"
         "assert not [m for m, mod in sys.modules.items()"
         " if mod is not None and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "print('ok')\n"
