@@ -85,7 +85,9 @@ Phases (any failure exits non-zero and prints no result):
    kernel lane is explained again in this process with the GEMM's launches
    counted (``explain[kernel_variants]``, which must be > 0);
 13. the ranking oracle and the learned cost model, through ``python -m
-   repro_torch oracle|predict``: caches warmed from both CLI censuses and
+   repro_torch oracle|predict`` once per verb and through the same entry
+   point (``launch.cli.main``) in this process otherwise, where the step
+   touches no device: caches warmed from both CLI censuses and
    their explanations answer every grid instance ``measured`` (by ``oracle
    query --batch``), with the census record's ranks and verdict and the
    explanation's cause; kernel-lane misses outside the warm buckets (the
@@ -99,13 +101,30 @@ Phases (any failure exits non-zero and prints no result):
    ``measured`` once its refresher has drained them; ``predict train|eval``
    on a cost-model census of the default grid, and an active cost-model
    census (``--predictor``) that must keep exactly the full census's
-   anomaly set; an active wall-clock census on the card, gated by a model
+   anomaly set (both censuses planned by ``census plan`` and run by
+   ``api.run_census`` in this process); an active wall-clock census on the
+   card, gated by a model
    trained with ``--machine cpu-1core``, that must both predict (the
    distributive and solve instances) and measure (the GEMM's tiles), timed
    against the full census of its grid and run again in this process with
    the GEMM's launches counted (``active_census[kernel_variants]``); and a
    cache warmed with that model answering a kernel-lane miss
-   ``learned_model`` and still enqueueing it.
+   ``learned_model`` and still enqueueing it;
+14. the model stack and the serving engine (``repro_torch.models``,
+   ``serve.engine``), which reach no hand kernel, as the reference's model
+   path reaches no Pallas kernel: every arch's SMOKE config in f32 on the
+   card against the same parameters on the CPU (forward logits, and decode
+   consistency on the card); qwen2-moe-a2.7b and mamba2-1.3b at full width
+   in bf16, weights drawn on the card: decode consistency, ``moe_gather``
+   against ``moe_dense`` on the first MoE sublayer's input with no token
+   dropped, ``ServingEngine.generate`` twice (batch 4, prompt 128, 32
+   tokens, greedy; the last logits held to each other) and for the prefill
+   alone, prefill and decode ms beside the decode step's weight-stream
+   bound, tokens/s and peak memory, and one decode step's host cost and
+   profiled kernels; ``moe_dispatch_site`` through ``rank_site`` at the
+   reference's defaults and at qwen2-moe's expert widths; the three hand
+   kernels' counters over these steps, which must read 0; and
+   ``python -m repro_torch.launch.serve`` once, which must exit 0.
 
 Each kernel's launch counter is set to 0 just before each path and read just
 after it. The next-to-last line is a JSON object with the kernels' numbers,
@@ -163,6 +182,19 @@ SERVE_MISSES = ({"family": "chain", "params": {"n_matrices": 3, "lo": 1024, "hi"
 ACTIVE_GRID = ("--chains", "0", "--families", "distributive,solve,kernel_variants", "--kernel-sites", "matmul",
                "--kernel-native", "--sizes", "256,512", "--per-size", "2", "--shards", "2")
 ORACLE_SERVE_TIMEOUT = 300  # seconds for `oracle serve --refresh` to drain its misses
+#: phase 14: the model stack and the serving engine. Logits of the card
+#: against the CPU's are held to SMOKE_TOL * (1 + max|cpu|); decode against
+#: the forward to the reference's 5e-2 relative bound; gather against dense
+#: at full width to the bf16 tolerance elementwise
+SMOKE_TOL = 2e-4
+DECODE_REL = 5e-2
+SMOKE_SHAPE = (2, 24)                  # batch, sequence (the reference's decode-consistency test)
+FULL_ARCHS = ("qwen2-moe-a2.7b", "mamba2-1.3b")
+CONSISTENCY_SHAPE = (2, 64)            # full width: batch, sequence
+SERVE_SHAPE = (4, 128, 32)             # full width: batch, prompt, new tokens (greedy)
+MOE_SITE_SIZES = ({}, {"tokens": 1024, "d": 2048, "e": 60, "top_k": 4, "d_ff": 1408})
+HBM_BYTES_PER_S = 3.35e12              # the H100 SXM sheet's memory rate
+LAUNCHER = ("--arch", "qwen2-moe-a2.7b", "--device", "cuda", "--temperature", "0")
 TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
 
 # Planted faults in the GEMM that the 1000^3 f32 comparison at the 64^3 tile
@@ -1131,6 +1163,42 @@ def census_cli(args, device, timeout=CENSUS_TIMEOUT):
     return seconds, out.stdout
 
 
+def cli_in_process(args, device):
+    """The same command as :func:`census_cli` through
+    ``repro_torch.launch.cli.main`` in this process (no interpreter or
+    torch start-up); returns (seconds, stdout) and stops the script on a
+    non-zero exit. For host-only verbs: ``census run`` would still spawn
+    its workers."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import cli
+
+    extra = ["--device", device] if args[:2] in (["census", "run"], ["queue", "work"]) else []
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*args, *extra])
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        log(buf.getvalue()[-4000:])
+        sys.exit(f"chip_smoke: `repro_torch {' '.join(args + extra)}` in process returned {rc}")
+    return seconds, buf.getvalue()
+
+
+def census_in_process(root, grid, device, predictor=None):
+    """A host-only census planned by ``census plan`` and run to completion
+    in this process by ``api.run_census`` (no worker processes); returns
+    its seconds."""
+    from repro_torch import api
+
+    t0 = time.perf_counter()
+    extra = ["--predictor", str(predictor)] if predictor else []
+    cli_in_process(["census", "plan", "--out", str(root), "--backend", "cost_model", *extra, *grid], device)
+    api.run_census(str(root), device=device)
+    return time.perf_counter() - t0
+
+
 def family_timer(sweep, family):
     """Per-family seconds of an in-process census: each family's workload
     builds and its timer's measurements (timed outside the measured region:
@@ -1527,13 +1595,14 @@ def write_jsonl(path, rows):
     Path(path).write_text("".join(json.dumps(r, sort_keys=True) + "\n" for r in rows))
 
 
-def oracle_query(cache, queries, path, device):
-    """``oracle query --batch``: the verdicts of ``queries`` (written to
-    ``path``.jsonl first) in order, and the command's seconds."""
+def oracle_query(cache, queries, path, device, run=cli_in_process):
+    """``oracle query --batch`` (by ``run``: in this process, or
+    ``census_cli``): the verdicts of ``queries`` (written to ``path``.jsonl
+    first) in order, and the command's seconds."""
     batch = Path(f"{path}.queries.jsonl")
     write_jsonl(batch, queries)
-    secs, _ = census_cli(["oracle", "query", "--out", str(cache), "--batch", str(batch),
-                          "--json", f"{path}.verdicts.jsonl"], device)
+    secs, _ = run(["oracle", "query", "--out", str(cache), "--batch", str(batch),
+                   "--json", f"{path}.verdicts.jsonl"], device)
     verdicts = read_jsonl(f"{path}.verdicts.jsonl")
     if len(verdicts) != len(queries):
         sys.exit(f"chip_smoke: {len(queries)} oracle queries gave {len(verdicts)} verdicts")
@@ -1617,8 +1686,7 @@ def serve_refresh(cache, first, second, misses, work, device, timeout=ORACLE_SER
 
 
 def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card, device="cuda", default_grid=(),
-                 active_grid=ACTIVE_GRID, miss_sizes=ORACLE_MISS_SIZES, serve_misses=SERVE_MISSES,
-                 workers=4):
+                 active_grid=ACTIVE_GRID, miss_sizes=ORACLE_MISS_SIZES, serve_misses=SERVE_MISSES):
     """Phase 13: the ranking oracle and the learned cost model on the card
     (see the module docstring). ``stores`` and ``explains`` are the CLI
     census and explain roots of phases 11 and 12, ``default_grid`` the
@@ -1648,13 +1716,15 @@ def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card
     #    instance answers `measured`, equal to its census record
     caches = {}
     for key, census in stores.items():
+        # one CLI call per verb (the default grid's); the rest in this process
+        run = census_cli if key == "default" else cli_in_process
         cache = work / f"oracle_{key}"
-        secs, warm = census_cli(["oracle", "warm", "--out", str(cache), "--census", str(census),
-                                 "--explain", str(explains[key])], device)
+        secs, warm = run(["oracle", "warm", "--out", str(cache), "--census", str(census),
+                          "--explain", str(explains[key])], device)
         records = read_jsonl(Path(census) / "merged.jsonl")
         causes = {r["uid"]: r["cause"] for r in read_jsonl(Path(explains[key]) / "merged.jsonl")}
         verdicts, qsecs = oracle_query(cache, [{"family": r["family"], "params": r["params"]} for r in records],
-                                       work / f"grid_{key}", device)
+                                       work / f"grid_{key}", device, run)
         require_confidence(verdicts, "measured", f"the {key} grid")
         bad = [r["uid"] for v, r in zip(verdicts, records)
                if v["uid"] != r["uid"] or v["ranks"] != r["ranks"] or v["is_anomaly"] != r["is_anomaly"]
@@ -1662,12 +1732,13 @@ def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card
         if bad:
             sys.exit(f"chip_smoke: {key} verdicts that differ from the census record or its cause: {bad[:8]}")
         caches[key] = cache
-        out[f"warm_{key}"] = {"warm_seconds": secs, "query_seconds": qsecs, "queries": len(verdicts),
+        out[f"warm_{key}"] = {"how": run.__name__, "warm_seconds": secs, "query_seconds": qsecs,
+                              "queries": len(verdicts),
                               "hit_rate": hit_rate(verdicts), "anomalies": sum(v["is_anomaly"] for v in verdicts),
                               "entries": warm.strip()}
-        say(f"{key}: {warm.strip()[2:]} in {secs:.1f} s; {len(verdicts)} grid queries by `oracle query --batch` "
-            f"in {qsecs:.1f} s, all measured and equal to the census (ranks, verdict, cause), hit rate "
-            f"{hit_rate(verdicts):.2f}, {out[f'warm_{key}']['anomalies']} anomalies")
+        say(f"{key} ({run.__name__}): {warm.strip()[2:]} in {secs:.1f} s; {len(verdicts)} grid queries by "
+            f"`oracle query --batch` in {qsecs:.1f} s, all measured and equal to the census (ranks, verdict, "
+            f"cause), hit rate {hit_rate(verdicts):.2f}, {out[f'warm_{key}']['anomalies']} anomalies")
 
     # 2. kernel-lane misses on the hand GEMM: model_only and enqueued, drained
     #    by `queue work`, then measured; the same misses on a second cache
@@ -1686,8 +1757,8 @@ def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card
         lane = caches["kernel_lane"]
         if how == "in_process":
             lane = work / "oracle_kernel_lane_in_process"
-            census_cli(["oracle", "warm", "--out", str(lane), "--census", str(stores["kernel_lane"]),
-                        "--explain", str(explains["kernel_lane"])], device)
+            cli_in_process(["oracle", "warm", "--out", str(lane), "--census", str(stores["kernel_lane"]),
+                            "--explain", str(explains["kernel_lane"])], device)
         first, _ = oracle_query(lane, misses, work / f"miss_{how}", device)
         require_confidence(first, "model_only", f"kernel-lane misses ({how})", enqueued=True)
         if how == "cli":
@@ -1703,7 +1774,8 @@ def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card
         again, _ = oracle_query(lane, misses, work / f"miss_{how}_again", device)
         require_confidence(again, "measured", f"kernel-lane misses after `queue work` ({how})", enqueued=False)
         total, pending = pending_misses(lane)
-        _, status = census_cli(["oracle", "status", "--out", str(lane)], device)
+        _, status = (census_cli if how == "cli" else cli_in_process)(["oracle", "status", "--out", str(lane)],
+                                                                     device)
         if pending or total != len(misses) or f"{total} misses enqueued, 0 pending" not in status:
             sys.exit(f"chip_smoke: the kernel lane's cache has pending misses after `queue work`:\n{status}")
         drains[how] = {"seconds": secs, "ranks": {str(m["params"]["size"]): v["ranks"] for m, v in zip(misses, again)},
@@ -1740,12 +1812,10 @@ def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card
     #    model trained and evaluated on it, and an active census that keeps
     #    exactly the full census's anomaly set
     full, active, model = work / "predict_full", work / "predict_active", work / "model.json"
-    secs_full, _ = census_cli(["census", "run", "--out", str(full), "--workers", str(workers),
-                               "--backend", "cost_model", *default_grid], device)
+    secs_full = census_in_process(full, default_grid, device)
     _, trained = census_cli(["predict", "train", "--census", str(full), "--out", str(model)], device)
-    _, table = census_cli(["predict", "eval", "--census", str(full), "--model", str(model)], device)
-    secs_active, _ = census_cli(["census", "run", "--out", str(active), "--workers", str(workers),
-                                 "--backend", "cost_model", "--predictor", str(model), *default_grid], device)
+    _, table = cli_in_process(["predict", "eval", "--census", str(full), "--model", str(model)], device)
+    secs_active = census_in_process(active, default_grid, device, predictor=model)
     doc = json.loads(model.read_text())
     full_rows, active_rows = read_jsonl(full / "merged.jsonl"), read_jsonl(active / "merged.jsonl")
     anomalies = sorted(r["uid"] for r in full_rows if r["is_anomaly"])
@@ -1763,15 +1833,14 @@ def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card
     log("    " + table.strip().replace("\n", "\n    "))
     say(f"active cost_model census of the default grid: {n_pred} predicted, {len(active_rows) - n_pred} measured "
         f"of {len(active_rows)}; the full census's {len(anomalies)} anomalies kept exactly; {secs_active:.1f} s "
-        f"against {secs_full:.1f} s for the full census ({workers} workers)")
+        f"against {secs_full:.1f} s for the full census (both planned and run in this process)")
 
     # 5. an active wall-clock census on the card, gated by a model trained
     #    with --machine cpu-1core on a cost_model census of the same grid
     cm, cpu_model = work / "active_grid_cost_model", work / "model_cpu_1core.json"
-    census_cli(["census", "run", "--out", str(cm), "--workers", str(workers), "--backend", "cost_model",
-                *active_grid], device)
-    _, trained = census_cli(["predict", "train", "--census", str(cm), "--out", str(cpu_model),
-                             "--machine", "cpu-1core"], device)
+    census_in_process(cm, active_grid, device)
+    _, trained = cli_in_process(["predict", "train", "--census", str(cm), "--out", str(cpu_model),
+                                 "--machine", "cpu-1core"], device)
     runs = {}
     for key, extra in (("active", ["--predictor", str(cpu_model)]), ("full", [])):
         root = work / f"wall_clock_{key}"
@@ -1813,8 +1882,8 @@ def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card
     # 6. the learned tier: a cache warmed with the cpu-1core model answers a
     #    kernel-lane miss `learned_model` and still enqueues it
     learned = work / "oracle_learned"
-    census_cli(["oracle", "warm", "--out", str(learned), "--census", str(stores["kernel_lane"]),
-                "--model", str(cpu_model)], device)
+    cli_in_process(["oracle", "warm", "--out", str(learned), "--census", str(stores["kernel_lane"]),
+                    "--model", str(cpu_model)], device)
     miss = {"family": "kernel_variants",
             "params": {"site": "matmul", "size": miss_sizes[0], "seed": 2, "interpret": False}}
     (verdict,), _ = oracle_query(learned, [miss], work / "learned", device)
@@ -1828,8 +1897,325 @@ def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card
     return out
 
 
+def smoke_on_card(torch, T, cfg, dev):
+    """One SMOKE config (f32) on the card against the same parameters on
+    the CPU: the forward's logits (held), decode consistency on the card
+    (the reference's test: prefill s-1 tokens and decode one, or whisper's
+    four decode steps, against the forward's logits; held), and the decoded
+    logits of the card against the CPU's (recorded). Returns the record."""
+    b, s = SMOKE_SHAPE
+    rng = np.random.default_rng(1)
+    to_dev = functools.partial(T.layers.tree_map, lambda x: x.to(dev))
+    steps = {}
+    if cfg.is_encoder_decoder:
+        cpu, _ = T.init_encdec_params(cfg, seed=0, device="cpu")
+        card = to_dev(cpu)
+        enc = torch.from_numpy(0.02 * rng.standard_normal((b, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        dec = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 8)))
+        ref, _ = T.encdec_forward(cfg, cpu, enc, dec)
+        out, _ = T.encdec_forward(cfg, card, enc.to(dev), dec.to(dev))
+        for where, params in (("cpu", cpu), ("card", card)):
+            d_ = torch.device(where if where == "cpu" else dev)
+            st = T.encdec_prefill(cfg, params, T.init_encdec_state(cfg, b, 16, cfg.encoder_seq, device=d_),
+                                  enc.to(d_))
+            for t_ in range(4):
+                steps[where], st = T.encdec_decode_step(cfg, params, st, dec[:, t_: t_ + 1].to(d_), t_)
+        full = out[:, 3]
+    else:
+        cpu, _ = T.init_lm_params(cfg, seed=0, device="cpu")
+        card = to_dev(cpu)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+        if cfg.frontend == "vision_stub":
+            patches = torch.from_numpy(0.02 * rng.standard_normal((b, 8, cfg.d_model)).astype(np.float32))
+            merged = T.merge_vision_embeds(cfg, T.layers.embed_tokens(cfg, cpu["embed"], tokens), patches)
+            ref, _ = T.lm_forward(cfg, cpu, embeds=merged)
+            out, _ = T.lm_forward(cfg, card, embeds=merged.to(dev))
+            # the reference's test decodes after a prefill of the plain embeddings
+            plain = T.layers.embed_tokens(cfg, card["embed"], tokens.to(dev))
+            full = T.lm_forward(cfg, card, embeds=plain)[0][:, s - 1]
+        else:
+            ref, _ = T.lm_forward(cfg, cpu, tokens=tokens)
+            out, _ = T.lm_forward(cfg, card, tokens=tokens.to(dev))
+            full = out[:, s - 1]
+        for where, params in (("cpu", cpu), ("card", card)):
+            d_ = torch.device(where if where == "cpu" else dev)
+            prompt = {"tokens": tokens[:, : s - 1].to(d_)}
+            if cfg.frontend == "vision_stub":
+                prompt = {"embeds": T.layers.embed_tokens(cfg, params["embed"], tokens.to(d_))[:, : s - 1]}
+            _, st = T.lm_prefill(cfg, params, T.init_lm_state(cfg, b, s + 8, device=d_), **prompt)
+            steps[where], _ = T.lm_decode_step(cfg, params, st, tokens[:, s - 1: s].to(d_), s - 1)
+    err = float((out.cpu() - ref).abs().max())
+    rel = float((steps["card"] - full).abs().max() / (full.abs().max() + 1e-9))
+    return {"max_abs_err": err, "share_of_tolerance": err / (SMOKE_TOL * (1 + float(ref.abs().max()))),
+            "decode_rel_err": rel, "decode_share_of_bound": rel / DECODE_REL,
+            "decode_max_abs_err_vs_cpu": float((steps["card"].cpu() - steps["cpu"]).abs().max())}
+
+
+def decode_weight_bytes(cfg, params, batch):
+    """Bytes of the weights one decode step reads: every parameter once,
+    except an untied embedding table, of which the step gathers ``batch``
+    rows. Every expert is counted: at decode each group holds one token, so
+    each expert has 4 slots and its GEMMs run whether or not a slot is
+    filled (the gather dispatch's capacity)."""
+    from repro_torch.models.layers import tree_leaves
+
+    total = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    if not cfg.tie_embeddings:
+        table = params["embed"]["table"]
+        total -= (table.shape[0] - batch) * table.shape[1] * table.element_size()
+    return total
+
+
+def profile_step(torch, call):
+    """``call()`` once under ``torch.profiler``: the kernels it launched,
+    their summed device time and the span from the first kernel's start to
+    the last one's end (device ms), and the host's ms for the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"kernels": 0, "device_busy_ms": "not measured (no device events traced)", "host_ms": host_ms}
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
+    return {"kernels": len(kernels), "device_busy_ms": busy, "device_span_ms": span,
+            "device_idle_share_of_span": 1 - busy / span if span else 0.0, "host_ms_profiled": host_ms}
+
+
+def serve_full_width(torch, T, engine_cls, cfg, dev, say):
+    """One arch at full width in bf16, weights drawn on the card from seed 0:
+    decode consistency, gather against dense on the first MoE sublayer's
+    input (MoE archs), ``ServingEngine.generate`` twice (greedy) and once
+    more for the prefill alone, the decode step's host and device cost.
+    Returns the record."""
+    from repro_torch.models import moe as moe_mod
+
+    rec = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = T.init_lm_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    rec["init_seconds"] = time.perf_counter() - t0
+    rec["param_bytes"] = sum(x.numel() * x.element_size() for x in T.layers.tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    # decode consistency; the first MoE sublayer's input is kept for gather =
+    # dense. With the config's capacity factor the forward at t = s may drop
+    # the last token's assignments, which decode (t = 1: 4 slots an expert)
+    # keeps, so the held check runs with no assignment dropped anywhere
+    # (capacity factor E / top_k) and the config's own factor is recorded
+    # (the reference computes the same function; ROADMAP Queue 3)
+    b, s = CONSISTENCY_SHAPE
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    first_moe, real = [], moe_mod._gather_groups
+
+    def spy(cfg_, params_, x):
+        if not first_moe:
+            first_moe.append((params_, x.clone()))
+        return real(cfg_, params_, x)
+
+    no_drops = cfg.replace(moe_capacity_factor=cfg.n_experts / cfg.top_k) if cfg.is_moe else cfg
+    rec["decode_consistency"] = {"shape": [b, s]}
+    for key, cfg_ in (("held", no_drops), ("recorded", cfg))[: 2 if cfg.is_moe else 1]:
+        moe_mod._gather_groups = spy
+        try:
+            logits, _ = T.lm_forward(cfg_, params, tokens=tokens)
+        finally:
+            moe_mod._gather_groups = real
+        _, st = T.lm_prefill(cfg_, params, T.init_lm_state(cfg_, b, s + 8, device=dev), tokens=tokens[:, : s - 1])
+        step, _ = T.lm_decode_step(cfg_, params, st, tokens[:, s - 1:], s - 1)
+        full = logits[:, s - 1]
+        rel = float((step - full).abs().max() / (full.abs().max() + 1e-9))
+        rec["decode_consistency"][key] = {"capacity_factor": cfg_.moe_capacity_factor if cfg.is_moe else None,
+                                          "rel_err": rel, "share_of_bound": rel / DECODE_REL}
+        del logits, st, step, full
+        say(f"decode consistency at b {b}, s {s}"
+            + (f", capacity factor {cfg_.moe_capacity_factor:g} ({key})" if cfg.is_moe else "")
+            + f": rel err {rel:.3e} ({rel / DECODE_REL:.3f} of {DECODE_REL})")
+        if key == "held" and rel >= DECODE_REL:
+            sys.exit(f"chip_smoke: {cfg.name} at full width: decode relerr {rel} >= {DECODE_REL}")
+    if cfg.is_moe:
+        mp, x = first_moe[0]
+        x2d = x.reshape(-1, cfg.d_model)
+        gathered, _ = T.moe_gather(no_drops, mp, x2d)  # capacity = T: nothing dropped
+        dense, _ = T.moe_dense(no_drops, mp, x2d)
+        checks = Checks(torch, "moe_gather against moe_dense")
+        checks.hold("gather", gathered, dense, TOL["bfloat16"], f"{cfg.name} first MoE sublayer")
+        rec["gather_vs_dense"] = {"tokens": x2d.shape[0], "capacity_factor": no_drops.moe_capacity_factor,
+                                  "max_abs_err": checks.errs["gather"], "share_of_tolerance": checks.used["gather"],
+                                  "tolerance": TOL["bfloat16"]}
+        say(f"moe_gather = moe_dense on the first MoE sublayer's input ({x2d.shape[0]} tokens, capacity factor "
+            f"{no_drops.moe_capacity_factor:g}): max_abs_err {checks.errs['gather']:.3e}, "
+            f"{checks.used['gather']:.3f} of the bf16 tolerance")
+        checks.stop_if_failed("phase 14, gather against dense")
+        del first_moe, mp, x, x2d, gathered, dense
+
+    # serving: batch, prompt, new tokens (greedy), CUDA events around generate
+    b, sp, n = SERVE_SHAPE
+    prompts = torch.randint(0, cfg.vocab_size, (b, sp), generator=gen, device=dev)
+    engine = engine_cls(cfg, params, max_len=sp + n + 8, device=dev)
+
+    def timed(n_new):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = engine.generate(prompts, n_new)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3, engine.last_logits.clone()
+
+    runs = [timed(n), timed(n)]
+    prefill = [timed(1), timed(1)]
+    (out_a, ms_a, _, last_a), (out_b, ms_b, wall_b, last_b) = runs
+    checks = Checks(torch, "two generations' last logits")
+    checks.hold("last_logits", last_b, last_a, TOL["bfloat16"], f"{cfg.name} generate twice")
+    checks.stop_if_failed("phase 14, generate twice")
+    if out_b.shape != (b, sp + n) or int(out_b.min()) < 0 or int(out_b.max()) >= cfg.vocab_size:
+        sys.exit(f"chip_smoke: {cfg.name} generated {tuple(out_b.shape)} tokens outside the vocabulary")
+    prefill_ms = prefill[1][1]
+    decode_ms = (ms_b - prefill_ms) / (n - 1)
+    weight_bytes = decode_weight_bytes(cfg, params, b)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+
+    # the decode step alone: host time to issue it, device time, a profiled step
+    state = T.init_lm_state(cfg, b, sp + n + 8, device=dev)
+    logits, state = engine._prefill(params, state, prompts)
+    last = logits.argmax(-1, keepdim=True)
+    host, device = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        engine._step(params, state, last, sp)
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    profiled = profile_step(torch, lambda: engine._step(params, state, last, sp))
+    del state, logits
+    rec["serve"] = {
+        "batch": b, "prompt": sp, "new_tokens": n, "greedy": True,
+        "generate_ms": [ms_a, ms_b], "generate_wall_ms": wall_b, "prefill_ms": [p_[1] for p_ in prefill],
+        "decode_ms_per_step": decode_ms, "tokens_per_s": b * n / (ms_b / 1e3),
+        "decode_tokens_per_s": b / (decode_ms / 1e3),
+        "decode_weight_bytes": weight_bytes, "decode_bound_ms": bound_ms, "bound_by": "bytes",
+        "decode_share_of_bound": bound_ms / decode_ms,
+        "head_f32_transient_bytes": cfg.vocab_size * cfg.d_model * 4,
+        "tokens_equal_across_runs": bool(torch.equal(out_a, out_b)),
+        "last_logits_max_abs_err": checks.errs["last_logits"],
+        "last_logits_share_of_tolerance": checks.used["last_logits"],
+        "step_host_ms": sorted(host)[2], "step_device_ms": sorted(device)[2], "step_profile": profiled,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    }
+    r = rec["serve"]
+    say(f"generate b {b}, prompt {sp}, {n} new (greedy): {ms_a:.1f} / {ms_b:.1f} ms; prefill {prefill_ms:.2f} ms; "
+        f"decode {decode_ms:.3f} ms a step against a {bound_ms:.3f} ms weight-stream bound "
+        f"({weight_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {r['decode_share_of_bound']:.3f}); "
+        f"{r['tokens_per_s']:.1f} tokens/s end to end, {r['decode_tokens_per_s']:.1f} in decode; peak memory "
+        f"{r['max_memory_allocated_bytes'] / 2**30:.2f} GiB; tokens equal across the two runs: "
+        f"{r['tokens_equal_across_runs']}; last logits {checks.used['last_logits']:.3f} of the bf16 tolerance")
+    say(f"decode step alone: host {r['step_host_ms']:.3f} ms to issue, device {r['step_device_ms']:.3f} ms; "
+        f"profiled: {profiled}")
+    return rec
+
+
+def phase_models(torch, kmod, fmod, smod, card, device="cuda", archs=None, full_archs=FULL_ARCHS,
+                 site_sizes=MOE_SITE_SIZES, launcher=LAUNCHER):
+    """Phase 14: the model stack and the serving engine on the card (see the
+    module docstring). Returns the record; the three hand kernels' launch
+    counters over the phase are its ``kernel_launches`` and must read 0."""
+    import repro_torch.models as T
+    from repro_torch.autotune import moe_dispatch_site, rank_site
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.serve import ServingEngine
+
+    def say(msg):
+        log(f"[14 models] {msg} [{card}]")
+
+    dev = torch.device(device)
+    reset_gemm_counts(kmod)
+    fmod.reset_counts()
+    smod.ssd_scan_kernel.launches = 0
+    out = {"smoke": {}, "full": {}, "moe_dispatch_site": {}, "seconds": {}}
+
+    # 1. every SMOKE config, f32, on the card against the CPU
+    t0 = time.perf_counter()
+    for arch in archs or ARCH_NAMES:
+        rec = smoke_on_card(torch, T, get_config(arch, smoke=True), dev)
+        out["smoke"][arch] = rec
+        say(f"{arch} SMOKE f32: logits max|cuda - cpu| {rec['max_abs_err']:.3e} ({rec['share_of_tolerance']:.3f} "
+            f"of {SMOKE_TOL} x (1 + max|cpu|)); decode consistency on the card {rec['decode_rel_err']:.3e} "
+            f"({rec['decode_share_of_bound']:.3f} of {DECODE_REL}); decoded logits max|cuda - cpu| "
+            f"{rec['decode_max_abs_err_vs_cpu']:.3e} (recorded)")
+    bad = [a for a, r in out["smoke"].items() if r["share_of_tolerance"] > 1 or r["decode_share_of_bound"] >= 1]
+    if bad:
+        sys.exit(f"chip_smoke: SMOKE configs whose card logits or decode disagree: {bad}")
+    out["seconds"]["smoke"] = time.perf_counter() - t0
+
+    # 2-3. full width, bf16
+    for arch in full_archs:
+        t0 = time.perf_counter()
+        out["full"][arch] = serve_full_width(torch, T, ServingEngine, get_config(arch), dev,
+                                             lambda msg, a=arch: say(f"{a} FULL bf16: {msg}"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seconds"][arch] = time.perf_counter() - t0
+
+    # 4. the MoE-dispatch site through rank_site
+    t0 = time.perf_counter()
+    for kwargs in site_sizes:
+        site = moe_dispatch_site(**kwargs, device=device)
+        report = rank_site(site)
+        log("[14 models] " + report.summary().replace("\n", "\n    "))
+        out["moe_dispatch_site"][site.name] = {
+            "kwargs": kwargs, "ranks": report.ranking.ranks, "selected": report.selected,
+            "single_run_ms": {k_: t_ * 1e3 for k_, t_ in report.single_run_times.items()},
+            "dropped": list(report.dropped), "flops": site.flops_table(),
+            "verdict": report.discriminant.reason if report.discriminant.is_anomaly else "valid",
+        }
+        del site
+    out["seconds"]["moe_dispatch_site"] = time.perf_counter() - t0
+
+    # the three hand kernels were launched by none of the above
+    out["kernel_launches"] = {"gemm": kmod.matmul_kernel.launches,
+                              "flash_attention": fmod.flash_attention_kernel.launches,
+                              "ssd": smod.ssd_scan_kernel.launches}
+    say(f"hand-kernel launches over the phase's in-process steps: {out['kernel_launches']}")
+    if any(out["kernel_launches"].values()):
+        sys.exit(f"chip_smoke: the model path launched a hand kernel: {out['kernel_launches']}")
+
+    # 5. the serving launcher, as a user runs it
+    if launcher:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *launcher], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        out["launcher"] = {"argv": list(launcher), "rc": run.returncode, "stdout": run.stdout.strip(),
+                           "seconds": time.perf_counter() - t0}
+        say(f"python -m repro_torch.launch.serve {' '.join(launcher)}: exit {run.returncode} in "
+            f"{out['launcher']['seconds']:.1f} s; " + run.stdout.strip().replace("\n", "; "))
+        if run.returncode != 0:
+            log(run.stderr[-4000:])
+            sys.exit(f"chip_smoke: the serving launcher exited {run.returncode}")
+    return out
+
+
 def main():
     import torch
+
+    marks = [("start", time.perf_counter())]  # phase boundaries: the script's seconds by phase
+
+    def mark(phase):
+        marks.append((phase, time.perf_counter()))
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's path runs only on the card")
@@ -1883,6 +2269,7 @@ def main():
     details["setup"] = setup
     log("[1 setup] " + json.dumps(setup))
 
+    mark("1 setup")
     # ---------------------------------------------------------- 2. build --
     # one nvcc per source, all started together: flash attention, SSD, the
     # mma.sync rate probe and the planted faults of phases 3, 8 and 9 beside
@@ -1917,6 +2304,7 @@ def main():
     # Products on mma.sync (HMMA), loads by cp.async (LDGSTS), no spill.
     details["build"]["sass"] = gemm_sass_check(kmod, lib_path, spills)
 
+    mark("2 build")
     # ---------------------------------------------- 3. kernel vs plain ---
     gen = torch.Generator(device=dev).manual_seed(0)
     gemm_checks = Checks(torch, "the GEMM kernel")
@@ -1996,6 +2384,7 @@ def main():
     details["gemm_phase3"] = {"tolerance_used_by_tile": by_tile.used, "max_abs_err_by_tile": by_tile.errs,
                               "launches_by_copy": by_copy, "power": gemm_shares, "nan_case": gemm_nan}
 
+    mark("3 kernel vs plain")
     # ------------------------------------------------------------ 4. time --
     rates = mma_rates(torch, peak_build.result())
     log(f"[4 mma.sync] registers only: TF32 m16n8k8 {rates['tf32'] / 1e12:.1f} TFLOP/s "
@@ -2061,6 +2450,7 @@ def main():
     log(f"[4 host] us per launch over {HOST_LAUNCHES} launches of a 64^3 GEMM, one synchronize: "
         + ", ".join(f"{k_} {v:.2f}" for k_, v in host.items()))
 
+    mark("4 time")
     # ------------------------------------------------- 5. quickstart path --
     # Both GEMM routes, each with jit=True (the algorithm captured once as a
     # CUDA graph and replayed) and jit=False (eager launches), in one run.
@@ -2151,6 +2541,7 @@ def main():
     if launches["quickstart[hand_gemm]"] == 0 or launches["quickstart[hand_gemm, eager]"] == 0:
         sys.exit("chip_smoke: the hand-GEMM quickstart path launched no GEMM kernel")
 
+    mark("5 quickstart")
     # --------------------------------------------------- 6. autotune path --
     site = matmul_blocks_site(1024, 1024, 1024, blocks=kmod.SUPPORTED_TILES)
     a, b = site.make_inputs(0)  # the inputs rank_site times (seed 0)
@@ -2182,6 +2573,7 @@ def main():
         f"max_abs_err {gemm_checks.errs}")
     gemm_launches = dict(launches)
 
+    mark("6 autotune")
     # ---------------------------------------------------------- 7. builds --
     built = {}
     for kname, future in later_builds.items():
@@ -2228,22 +2620,28 @@ def main():
     built["seconds_from_start_of_phase_2"] = time.perf_counter() - t_builds
     details["build_attention_ssd"] = built
 
+    mark("7 builds")
     flash = phase_flash(torch, dev, peak, rates, fmod, fault_libs, f32_fault_libs, launches)
     details["flash_attention"] = flash
+    mark("8 flash attention")
     ssd = phase_ssd(torch, dev, peak, smod, launches, ssd_fault_libs, rates, built["ssd"], unguarded[smod])
     fault_dir.cleanup()
     details["ssd"] = ssd
+    mark("9 ssd")
     details["sites"] = phase_sites(torch, rank_site, attention_site, ssd_chunk_site)
+    mark("10 sites")
     t_census = time.perf_counter()
     census_work = tempfile.mkdtemp(prefix="chip_smoke_census_")
     details["census"], stores = phase_census(torch, kmod, matmul_ref, launches, census_work)
     details["census"]["seconds"] = time.perf_counter() - t_census
+    mark("11 census")
     gemm_launches["census[kernel_variants]"] = launches["census[kernel_variants]"]
     launches_by_copy["census[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
     t_explain = time.perf_counter()
     details["explain"] = phase_explain(torch, kmod, launches, stores, census_work)
     details["explain"]["seconds"] = time.perf_counter() - t_explain
     log(f"[12 explain] phase 12 took {details['explain']['seconds']:.1f} s")
+    mark("12 explain")
     gemm_launches["explain[kernel_variants]"] = launches["explain[kernel_variants]"]
     launches_by_copy["explain[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
     t_oracle = time.perf_counter()
@@ -2251,11 +2649,25 @@ def main():
     details["oracle"] = phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, census_work, card)
     details["oracle"]["seconds"] = time.perf_counter() - t_oracle
     shutil.rmtree(census_work)
+    mark("13 oracle")
     log(f"[13 oracle] phase 13 took {details['oracle']['seconds']:.1f} s [{card}]")
     for path_ in ("oracle[kernel_variants]", "active_census[kernel_variants]"):
         gemm_launches[path_] = launches[path_]
         launches_by_copy[path_] = details["oracle"]["launches_by_copy"][path_]
+    t_models = time.perf_counter()
+    details["models"] = phase_models(torch, kmod, fmod, smod, card)
+    details["models"]["seconds"]["phase"] = time.perf_counter() - t_models
+    mark("14 models")
+    log(f"[14 models] phase 14 took {details['models']['seconds']['phase']:.1f} s [{card}]")
+    served = details["models"]["kernel_launches"]
+    gemm_launches["models[serve]"] = launches["models[serve]"] = served["gemm"]
+    for entry in flash["kernels"]:
+        entry["launches_by_path"]["models[serve]"] = served["flash_attention"]
+    ssd["kernel"]["launches_by_path"]["models[serve]"] = served["ssd"]
     details["launches"] = launches
+    details["phase_seconds"] = {name: t1 - t0 for (_, t0), (name, t1) in zip(marks, marks[1:])}
+    log("[phases] seconds from main's start, by phase: " + json.dumps(
+        {k_: round(v, 1) for k_, v in details["phase_seconds"].items()}))
 
     # ---------------------------------------------------------- results --
     main_row = timings[0]  # 1000^3, the chain GEMMs of instance_B

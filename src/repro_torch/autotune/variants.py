@@ -8,15 +8,18 @@ analytic FLOP count, so the FLOPs-discriminant test applies directly.
   attention (``models/attention.py``): equal math; chunked computes the
   masked blocks too, reference materialises the score matrix. Neither FLOPs
   nor bytes alone predicts the winner across shapes.
+* ``moe_dispatch`` — gather vs dense (``models/moe.py``): identical
+  outputs when no token is dropped, dense costs ~E/top_k x the FLOPs but has
+  no scatter/gather — FLOPs *should* discriminate; when they do not, that
+  is a textbook anomaly.
 * ``ssd_chunk`` — Mamba-2 chunk length (``models/mamba2.py``): equal
   leading-order FLOPs.
 * ``matmul_blocks`` — the hand-written Hopper GEMM's tile shapes plus the
   library baseline ``torch_matmul`` (cuBLAS; the reference's ``xla_dot``):
   equal FLOPs exactly.
 
-Like the reference's, the attention and SSD sites time the plain model
-code; neither has a kernel variant. The MoE-dispatch site comes with the
-slice that ports ``models/moe.py``.
+Like the reference's, the attention, MoE and SSD sites time the plain
+model code; none has a kernel variant.
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ from ..device import DeviceLike, block, resolve_device
 from ..kernels.matmul.matmul import check_tile
 from ..kernels.matmul.ops import matmul
 from ..models.attention import attention_chunked, attention_reference
+from ..models.config import ModelConfig
+from ..models.layers import split_params
 from ..models.mamba2 import ssd_chunked
+from ..models.moe import init_moe, moe_dense, moe_gather
 
 Thunk = Callable[[], Any]
 
@@ -117,6 +123,45 @@ def attention_site(
                     {"extra_traffic": "K/V repeated to H heads"}),
             Variant("chunked_flash", f_chunk, chunked,
                     {"memory": "O(s*block) not O(s^2)"}),
+        ),
+        make_inputs=inputs,
+    )
+
+
+# ------------------------------------------------------------- MoE site ----
+
+def moe_dispatch_site(
+    tokens: int = 2048, d: int = 256, e: int = 8, top_k: int = 2, d_ff: int = 128,
+    dtype: torch.dtype = torch.float32,
+    device: DeviceLike = "cuda",
+) -> VariantSite:
+    dev = resolve_device(device)
+    cfg = ModelConfig(
+        name="site-moe", n_layers=2, d_model=d, n_heads=4, n_kv_heads=4,
+        d_ff=d_ff, vocab_size=128, n_experts=e, top_k=top_k, moe_d_ff=d_ff,
+        dtype="float32", param_dtype="float32",
+    )
+    params, _ = split_params(init_moe(cfg, torch.Generator(device=dev).manual_seed(7)))
+
+    def inputs(seed: int):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn((tokens, d), generator=gen, device=dev).to(dtype)]
+
+    f_expert = 6.0 * tokens * d * d_ff  # 3 gemms x 2
+    f_gather = f_expert * top_k * cfg.moe_capacity_factor + 2.0 * tokens * d * e
+    f_dense = f_expert * e + 2.0 * tokens * d * e
+
+    def gather(x):
+        return _thunk(lambda x: moe_gather(cfg, params, x)[0], x)
+
+    def dense(x):
+        return _thunk(lambda x: moe_dense(cfg, params, x)[0], x)
+
+    return VariantSite(
+        name=f"moe_dispatch[T{tokens} E{e} k{top_k}]",
+        variants=(
+            Variant("gather", f_gather, gather, {"traffic": "scatter/gather"}),
+            Variant("dense", f_dense, dense, {"flops": f"{e/top_k:.0f}x active"}),
         ),
         make_inputs=inputs,
     )

@@ -1,8 +1,6 @@
-"""Attention in several mathematically equivalent implementations (the
-``attention_impl`` autotune site) plus KV-cache decode — the reference's
-``models/attention.py`` without the parameter code (``init_attention``,
-``project_qkv``, ``project_out`` and the ``attention`` dispatcher come with
-the model stack).
+"""Attention: GQA with qk-norm / logit softcap / sliding window, in several
+mathematically equivalent implementations (the ``attention_impl`` autotune
+site), plus KV-cache decode — the reference's ``models/attention.py``.
 
 * ``attention_reference`` — materialises the ``[.., sq, skv]`` scores; the
   correctness oracle. ``gqa="grouped"`` keeps K/V at kv-head granularity,
@@ -13,20 +11,61 @@ the model stack).
 * ``attention_local_chunked`` — sliding window, each q block slicing only
   the kv span it can see.
 
+``attention`` picks one of them by sequence length, as the reference's
+dispatcher does; like the reference's model path it reaches no kernel.
 The reference's ``lax.scan`` loops are Python loops here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .layers import softcap
+from .config import ModelConfig
+from .layers import Params, apply_rope, normal_init, ones_init, param_dtype, rms_head_norm, softcap, update_slice
 
 NEG_INF = -2.0e38  # f32-safe mask value
+
+
+# ---------------------------------------------------------------- params ---
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    dt = param_dtype(cfg)
+    hd = cfg.resolved_head_dim
+    out_std = 0.02 / np.sqrt(2 * cfg.n_layers)
+    params: Params = {
+        "wq": normal_init(gen, (cfg.d_model, cfg.n_heads, hd), ("embed", "q_heads", "head_dim"), dt),
+        "wk": normal_init(gen, (cfg.d_model, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim"), dt),
+        "wv": normal_init(gen, (cfg.d_model, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim"), dt),
+        "wo": normal_init(gen, (cfg.n_heads, hd, cfg.d_model), ("q_heads", "head_dim", "embed"), dt, out_std),
+    }
+    if cfg.qk_norm:
+        params["q_norm"] = ones_init((hd,), (None,), dt, gen.device)
+        params["k_norm"] = ones_init((hd,), (None,), dt, gen.device)
+    return params
+
+
+def project_qkv(
+    cfg: ModelConfig, params: Params, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [b, s, d] -> q [b, s, H, hd], k/v [b, s, K, hd] with RoPE applied."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    if cfg.qk_norm:
+        q = rms_head_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_head_norm(k, params["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def project_out(params: Params, attn: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bshk,hkd->bsd", attn, params["wo"].to(attn.dtype))
 
 
 # ------------------------------------------------------------ mask logic ---
@@ -229,7 +268,9 @@ def decode_attention(
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float() * scale
     scores = softcap(scores, logit_cap)
     kv_pos = kv_positions.to(dev) if kv_positions is not None else torch.arange(s, device=dev)
-    q_pos = (torch.as_tensor(cache_len, device=dev) - 1).reshape(-1, 1)  # query at cache_len - 1
+    # query at cache_len - 1; a host integer stays one (a tensor made from it
+    # would wait for the device's queue at every layer)
+    q_pos = cache_len - 1 if isinstance(cache_len, int) else (cache_len.to(dev) - 1).reshape(-1, 1)
     allowed = (kv_pos[None, :] <= q_pos) & (kv_pos[None, :] >= 0)
     if window is not None:
         allowed &= kv_pos[None, :] > q_pos - window
@@ -261,12 +302,40 @@ def update_kv_cache(
 ) -> Dict[str, torch.Tensor]:
     """A new cache with ``k_new``/``v_new`` written at ``position`` (the
     inputs are not changed). The offset is clamped so the update fits, as
-    ``lax.dynamic_update_slice`` clamps it."""
-    s_new, max_len = k_new.shape[1], cache["k"].shape[1]
-    start = min(max(int(position), 0), max_len - s_new)
-    out = {}
-    for name, new in (("k", k_new), ("v", v_new)):
-        t = cache[name].clone()
-        t[:, start:start + s_new] = new.to(t.dtype)
-        out[name] = t
-    return out
+    ``lax.dynamic_update_slice`` clamps it; a tensor offset is read to the
+    host once here."""
+    return {"k": update_slice(cache["k"], k_new, int(position), dim=1),
+            "v": update_slice(cache["v"], v_new, int(position), dim=1)}
+
+
+# ------------------------------------------------------------- dispatcher --
+
+def attention(
+    cfg: ModelConfig,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    local: bool = False,
+    impl: str = "auto",
+    q_block: int = 512,
+    kv_block: int = 1024,
+) -> torch.Tensor:
+    """Select implementation by sequence length / layer kind / config."""
+    window = cfg.sliding_window if local else None
+    cap = cfg.attn_logit_softcap
+    sq = q.shape[1]
+    if impl == "auto":
+        impl = "reference" if sq <= 1024 else "chunked"
+    if impl == "reference":
+        return attention_reference(q, k, v, causal=True, window=window, logit_cap=cap)
+    if impl == "chunked":
+        if window is not None and window + q_block < k.shape[1]:
+            return attention_local_chunked(
+                q, k, v, window=window, logit_cap=cap, q_block=min(q_block, sq)
+            )
+        return attention_chunked(
+            q, k, v, causal=True, window=window, logit_cap=cap,
+            q_block=min(q_block, sq), kv_block=min(kv_block, k.shape[1]),
+        )
+    raise ValueError(f"unknown attention impl {impl!r}")

@@ -1,14 +1,292 @@
-"""Layer helpers (the reference's ``models/layers.py``); the port has
-``softcap`` so far."""
+"""Primitive layers: params-with-logical-axes, norms, RoPE, MLPs, embeddings
+(the reference's ``models/layers.py``).
+
+Parameters are plain nested dicts of tensors. During initialisation each
+leaf is a :class:`P` carrying its *logical axis names* (e.g.
+``("embed", "ffn")``); :func:`split_params` separates the value tree from
+the axis tree. The trees, names and axes are the reference's, so weights
+carry across as a tree map (:func:`params_from_numpy`).
+
+Initialisation draws from an explicit ``torch.Generator`` on the target
+device, one draw after another: where the reference splits a ``jax.random``
+key, the port takes the generator's next numbers. The values differ from
+the reference's by design; parity tests carry the reference's weights
+across.
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from ..device import DeviceLike, resolve_device
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+Axes = Tuple[Optional[str], ...]
+
+
+@dataclass
+class P:
+    """A parameter leaf paired with logical axis names (len == ndim)."""
+
+    value: torch.Tensor
+    axes: Axes
+
+    def __post_init__(self) -> None:
+        if len(self.axes) != self.value.ndim:
+            raise ValueError(
+                f"axes {self.axes} rank != value rank {tuple(self.value.shape)}"
+            )
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` on every leaf of a tree of nested dicts (a non-dict is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def split_params(tree: Any) -> Tuple[Any, Any]:
+    """(values, axes) trees from a tree of :class:`P` leaves."""
+    return tree_map(lambda p: p.value, tree), tree_map(lambda p: p.axes, tree)
+
+
+def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
+    """``torch.float32`` for ``"float32"``, and so on (a dtype passes)."""
+    if isinstance(name, torch.dtype):
+        return name
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dtype
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.param_dtype)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+def params_from_numpy(tree: Any, device: DeviceLike = "cuda",
+                      dtype: Optional[Union[str, torch.dtype]] = None) -> Any:
+    """The port's value tree from the reference's as numpy arrays (stacked
+    units included): every leaf a tensor on ``device``, with the leaf's
+    own dtype, or ``dtype`` for every floating-point leaf when given.
+    bfloat16 leaves (numpy's ``ml_dtypes`` extension type) carry their bits
+    across unchanged."""
+    dev = resolve_device(device)
+    cast = torch_dtype(dtype) if dtype is not None else None
+
+    def leaf(a):
+        a = np.array(a)  # a writable copy of the reference's (read-only) buffer
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        if cast is not None and t.is_floating_point():
+            t = t.to(cast)
+        return t.to(dev)
+
+    return tree_map(leaf, tree)
+
+
+# ------------------------------------------------------------------ init ---
+
+def normal_init(
+    gen: torch.Generator,
+    shape: Sequence[int],
+    axes: Axes,
+    dtype: torch.dtype,
+    stddev: float = 0.02,
+) -> P:
+    """``stddev`` times a standard normal truncated to [-2, 2], drawn in f32
+    on the generator's device and cast to ``dtype``."""
+    v = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return P(v.mul_(stddev).to(dtype), tuple(axes))
+
+
+def zeros_init(shape: Sequence[int], axes: Axes, dtype: torch.dtype, device: torch.device) -> P:
+    return P(torch.zeros(tuple(shape), dtype=dtype, device=device), tuple(axes))
+
+
+def ones_init(shape: Sequence[int], axes: Axes, dtype: torch.dtype, device: torch.device) -> P:
+    return P(torch.ones(tuple(shape), dtype=dtype, device=device), tuple(axes))
+
+
+# ----------------------------------------------------------------- norms ---
+
+def init_norm(cfg: ModelConfig, dims: int, device: torch.device) -> Params:
+    dt = param_dtype(cfg)
+    if cfg.norm_type == "layernorm":
+        return {
+            "scale": ones_init((dims,), ("embed",), dt, device),
+            "bias": zeros_init((dims,), ("embed",), dt, device),
+        }
+    # rmsnorm: gemma2 stores (w) and applies (1 + w); init accordingly.
+    if cfg.rms_one_offset:
+        return {"scale": zeros_init((dims,), ("embed",), dt, device)}
+    return {"scale": ones_init((dims,), ("embed",), dt, device)}
+
+
+def apply_norm(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Norm in f32, cast back to the compute dtype."""
+    xf = x.float()
+    if cfg.norm_type == "layernorm":
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)  # jnp.var: population variance
+        y = (xf - mean) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * params["scale"].float() + params["bias"].float()
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps)
+        w = params["scale"].float()
+        y = y * (1.0 + w) if cfg.rms_one_offset else y * w
+    return y.to(x.dtype)
+
+
+def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """qwen3 qk-norm: RMS over the head_dim of [..., head_dim]."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+# ------------------------------------------------------------------ RoPE ---
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_frequencies_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The f32 frequencies on ``device``, copied there once: a copy from the
+    host per call would wait for the device's queue at every layer."""
+    return torch.tensor(rope_frequencies(head_dim, theta), dtype=torch.float32, device=device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotate [..., seq, n_heads, head_dim] by position-dependent phases; the
+    head splits into halves (not interleaved pairs).
+
+    ``positions`` (on ``x``'s device) broadcasts against the seq dim: shape
+    [seq] or [batch, seq].
+    """
+    freqs = _rope_frequencies_on(x.shape[-1], theta, x.device)
+    angles = positions.float()[..., None] * freqs  # [..., s, hd/2]
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------- embedding ---
+
+def init_embedding(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    return {
+        "table": normal_init(
+            gen, (cfg.vocab_size, cfg.d_model), ("vocab", "embed"), param_dtype(cfg)
+        )
+    }
+
+
+def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["table"].to(compute_dtype(cfg))[tokens.long()]
+    if cfg.embed_scale:
+        # the scale rounded to the compute dtype first, as the reference's
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
+    return x
+
+
+def unembed(cfg: ModelConfig, embed_params: Params, head_params: Optional[Params],
+            x: torch.Tensor) -> torch.Tensor:
+    """Project to vocabulary logits (tied or untied head); f32 logits. The
+    table is cast to f32 whole on every call, as in the reference."""
+    if cfg.tie_embeddings:
+        logits = torch.einsum("...d,vd->...v", x.float(), embed_params["table"].float())
+    else:
+        if head_params is None:
+            raise ValueError(f"{cfg.name}: an untied head needs lm_head parameters")
+        logits = torch.einsum("...d,dv->...v", x.float(), head_params["w"].float())
+    if cfg.final_logit_softcap:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def init_unembed(cfg: ModelConfig, gen: torch.Generator) -> Optional[Params]:
+    if cfg.tie_embeddings:
+        return None
+    return {
+        "w": normal_init(
+            gen, (cfg.d_model, cfg.vocab_size), ("embed", "vocab"), param_dtype(cfg)
+        )
+    }
+
+
+# ------------------------------------------------------------------- MLP ---
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: Optional[int] = None) -> Params:
+    d_ff = d_ff if d_ff is not None else cfg.d_ff
+    dt = param_dtype(cfg)
+    out_std = 0.02 / np.sqrt(2 * cfg.n_layers)
+    if cfg.activation in ("swiglu", "geglu"):
+        return {
+            "wi": normal_init(gen, (cfg.d_model, d_ff), ("embed", "ffn"), dt),
+            "wg": normal_init(gen, (cfg.d_model, d_ff), ("embed", "ffn"), dt),
+            "wo": normal_init(gen, (d_ff, cfg.d_model), ("ffn", "embed"), dt, out_std),
+        }
+    return {
+        "wi": normal_init(gen, (cfg.d_model, d_ff), ("embed", "ffn"), dt),
+        "wo": normal_init(gen, (d_ff, cfg.d_model), ("ffn", "embed"), dt, out_std),
+    }
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)``."""
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    h = x @ params["wi"].to(x.dtype)
+    if cfg.activation == "swiglu":
+        h = F.silu(x @ params["wg"].to(x.dtype)) * h
+    elif cfg.activation == "geglu":
+        h = gelu_tanh(x @ params["wg"].to(x.dtype)) * h
+    else:
+        h = gelu_tanh(h)
+    return h @ params["wo"].to(x.dtype)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
     return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------- slices ---
+
+def update_slice(t: torch.Tensor, new: torch.Tensor, start: int, dim: int) -> torch.Tensor:
+    """A copy of ``t`` with ``new`` written from ``start`` along ``dim``; the
+    start is clamped so the update fits, as ``lax.dynamic_update_slice``
+    clamps it. ``start`` is a host integer: no device sync."""
+    size = new.shape[dim]
+    start = min(max(int(start), 0), t.shape[dim] - size)
+    out = t.clone()
+    out.narrow(dim, start, size).copy_(new.to(t.dtype))
+    return out

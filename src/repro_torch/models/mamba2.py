@@ -1,21 +1,76 @@
-"""Mamba-2 SSD (state-space duality) scans — the reference's
-``models/mamba2.py`` without the parameter and convolution code
-(``init_mamba``, ``_causal_conv`` and ``apply_mamba`` come with the model
-stack).
+"""Mamba-2 mixer via SSD (state-space duality) — the reference's
+``models/mamba2.py``.
 
 ``ssd_chunked`` splits the sequence into chunks of length Q: within a chunk
 the recurrence is evaluated in its dual quadratic form, and a loop over
 chunk states carries it between chunks. The chunk length is mathematically
 inert (any Q gives the same result up to reassociation), so chunk lengths
 are equal-FLOPs variants — the ``ssd_chunk`` autotune site.
-``ssd_reference`` is the sequential oracle, one step per token.
+``ssd_reference`` is the sequential oracle, one step per token; decode runs
+it (``impl="step"``). ``apply_mamba`` is the full mixer: projections, the
+causal depthwise convolution, the scan, the gate, the norm and the
+out-projection. Like the reference's model path it reaches no kernel.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import P, Params, normal_init, ones_init, param_dtype
+
+
+def init_mamba(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    dt = param_dtype(cfg)
+    dev = gen.device
+    d, di = cfg.d_model, cfg.d_inner
+    g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    k = cfg.ssm_conv_kernel
+    out_std = 0.02 / np.sqrt(2 * cfg.n_layers)
+    # dt bias init: softplus^-1 of dt in [1e-3, 1e-1] (mamba2 default range);
+    # numpy-drawn as in the reference, so these leaves equal its values
+    rng = np.random.default_rng(42)
+    dt_init = np.exp(
+        rng.uniform(np.log(1e-3), np.log(1e-1), size=(h,))
+    ).astype(np.float32)
+    dt_bias = np.log(np.expm1(dt_init))
+    a_init = rng.uniform(1.0, 16.0, size=(h,)).astype(np.float32)
+    return {
+        "wz": normal_init(gen, (d, di), ("embed", "ffn"), dt),
+        "wx": normal_init(gen, (d, di), ("embed", "ffn"), dt),
+        "wB": normal_init(gen, (d, g * n), ("embed", None), dt),
+        "wC": normal_init(gen, (d, g * n), ("embed", None), dt),
+        "wdt": normal_init(gen, (d, h), ("embed", "heads"), dt),
+        "conv_x": normal_init(gen, (k, di), (None, "ffn"), dt, 0.1),
+        "conv_B": normal_init(gen, (k, g * n), (None, None), dt, 0.1),
+        "conv_C": normal_init(gen, (k, g * n), (None, None), dt, 0.1),
+        "A_log": P(torch.from_numpy(np.log(a_init)).to(dev), ("heads",)),
+        "D": ones_init((h,), ("heads",), torch.float32, dev),
+        "dt_bias": P(torch.from_numpy(dt_bias).to(dev), ("heads",)),
+        "norm": ones_init((di,), ("ffn",), dt, dev),
+        "wo": normal_init(gen, (di, d), ("ffn", "embed"), dt, out_std),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv along seq. x [b, s, c], w [k, c].
+
+    Returns (y [b, s, c], new_state [b, k-1, c]) — state carries the last
+    k-1 inputs for decode.
+    """
+    k = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # [b, s+k-1, c]
+    y = sum(xp[:, i: i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
+    new_state = xp[:, -(k - 1):, :]
+    return F.silu(y), new_state
 
 
 def _cumsum64(log_a: torch.Tensor, dim: int) -> torch.Tensor:
@@ -133,3 +188,56 @@ def ssd_reference(
             "bhp,bhn->bhpn", xt * dtt[..., None], bt_h)
         ys.append(torch.einsum("bhpn,bhn->bhp", state, ct_h))
     return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def apply_mamba(
+    cfg: ModelConfig,
+    params: Params,
+    xin: torch.Tensor,               # [b, s, d]
+    ssm_state: Optional[torch.Tensor] = None,
+    conv_state: Optional[Dict[str, torch.Tensor]] = None,
+    impl: str = "chunked",
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full Mamba-2 mixer. Returns (y [b,s,d], ssm_state, conv_state)."""
+    b, s, d = xin.shape
+    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+
+    z = xin @ params["wz"].to(xin.dtype)
+    xr = xin @ params["wx"].to(xin.dtype)
+    br = xin @ params["wB"].to(xin.dtype)
+    cr = xin @ params["wC"].to(xin.dtype)
+    dt_raw = xin @ params["wdt"].to(xin.dtype)
+
+    cs_in = conv_state or {}
+    xr, cs_x = _causal_conv(xr, params["conv_x"].to(xin.dtype), cs_in.get("x"))
+    br, cs_b = _causal_conv(br, params["conv_B"].to(xin.dtype), cs_in.get("B"))
+    cr, cs_c = _causal_conv(cr, params["conv_C"].to(xin.dtype), cs_in.get("C"))
+    new_conv_state = {"x": cs_x, "B": cs_b, "C": cs_c}
+
+    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
+    xh = xr.reshape(b, s, h, p)
+    bm = br.reshape(b, s, g, n)
+    cm = cr.reshape(b, s, g, n)
+
+    if impl == "chunked" and s > 1:
+        chunk = min(cfg.ssm_chunk, s)
+        if s % chunk != 0:
+            chunk = 1 << int(np.floor(np.log2(s)))
+            chunk = max(1, min(chunk, s))
+            while s % chunk != 0:
+                chunk //= 2
+        y, final_state = ssd_chunked(xh, dt, params["A_log"], bm, cm, chunk, ssm_state)
+    else:
+        y, final_state = ssd_reference(xh, dt, params["A_log"], bm, cm, ssm_state)
+
+    # skip connection D, gate, norm, out-projection
+    y = y + xh.to(y.dtype) * params["D"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(b, s, cfg.d_inner)
+    y = y * F.silu(z.to(y.dtype))
+    yf = y.float()
+    ms = yf.square().mean(dim=-1, keepdim=True)
+    yf = yf * torch.rsqrt(ms + cfg.norm_eps) * params["norm"].float()
+    y = yf.to(xin.dtype)
+    out = y @ params["wo"].to(xin.dtype)
+    return out, final_state, new_conv_state

@@ -1,0 +1,410 @@
+"""Model assembly: decoder LMs (dense/MoE/hybrid/SSM) and encoder-decoder
+(the reference's ``models/model.py``).
+
+The layer stack loops over *stacked unit parameters* (leading axis
+``n_units``, logical axis ``layers``), the reference's ``lax.scan`` made a
+Python loop; the parameter trees and the decode state are laid out as the
+reference's, so weights and states carry across as tree maps.
+
+Public entry points (pure functions over parameter trees):
+
+* ``init_lm_params`` / ``lm_forward``        — scoring forward
+* ``init_lm_state`` / ``lm_prefill`` / ``lm_decode_step`` — serving
+* ``init_encdec_params`` / ``encdec_forward`` / ``encdec_prefill`` /
+  ``encdec_decode_step``                      — whisper-style enc-dec
+
+Activation checkpointing (``remat``) belongs to the training slice and the
+sharding options to the distributed one: this module refuses them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .attention import (
+    attention_reference,
+    decode_attention,
+    init_attention,
+    init_kv_cache,
+    project_out,
+    project_qkv,
+    update_kv_cache,
+)
+from .blocks import apply_sublayer, init_unit, init_unit_state
+from .config import ModelConfig
+from .layers import (
+    Params,
+    apply_mlp,
+    apply_norm,
+    compute_dtype,
+    embed_tokens,
+    init_embedding,
+    init_mlp,
+    init_norm,
+    init_unembed,
+    normal_init,
+    param_dtype,
+    split_params,
+    tree_map,
+    unembed,
+)
+
+_SHARDING_FIELDS = ("boundary_sharding", "interior_sharding", "attn_q_sharding",
+                    "attn_kv_sharding", "moe_compute_shardings")
+
+
+class ForwardOptions(NamedTuple):
+    attn_impl: str = "auto"         # auto | reference | chunked
+    moe_dispatch: str = "gather"    # gather | dense
+    mamba_impl: str = "chunked"     # chunked | reference
+    remat: str = "none"             # only "none": checkpointing is the training slice's
+    # GQA contraction order: "grouped" keeps K/V at kv-head granularity;
+    # "broadcast" repeats K/V to H query heads (equal FLOPs, more traffic).
+    gqa_mode: str = "grouped"
+    # The reference's sharding constraints (the distributed slice); each
+    # must stay None here.
+    boundary_sharding: Optional[Any] = None
+    interior_sharding: Optional[Any] = None
+    attn_q_sharding: Optional[Any] = None
+    attn_kv_sharding: Optional[Any] = None
+    # kv-only chunking (q unchunked): q_block == -1
+    attn_q_block: int = 0                     # 0 = impl default
+    moe_compute_shardings: Optional[Any] = None
+
+    def check(self) -> "ForwardOptions":
+        """``self``, or NotImplementedError for what the port does not run yet."""
+        if self.remat != "none":
+            raise NotImplementedError(
+                f"remat={self.remat!r}: activation checkpointing comes with the training slice "
+                "of the port (train/); the model stack runs remat='none'")
+        set_ = [f for f in _SHARDING_FIELDS if getattr(self, f) is not None]
+        if set_:
+            raise NotImplementedError(
+                f"{', '.join(set_)}: sharding constraints come with the distributed slice of the "
+                "port (distributed/); the model stack runs on one device")
+        return self
+
+
+# ------------------------------------------------------------------ init ---
+
+def _stack(trees: List[Params]) -> Params:
+    """Stack a list of equal trees leaf by leaf along a new leading axis,
+    emptying the input trees as it goes (each leaf's parts are freed once
+    stacked)."""
+    out = {}
+    for key in list(trees[0]):
+        parts = [t.pop(key) for t in trees]
+        out[key] = _stack(parts) if isinstance(parts[0], dict) else torch.stack(parts)
+    return out
+
+
+def _stacked_init(n: int, init_one) -> Tuple[Params, Any]:
+    """(values, axes) of ``n`` stacked layers, each made by ``init_one()``
+    (a tree of :class:`P`) and copied into preallocated stacked leaves, so
+    the peak is the stack plus one layer."""
+    values0, axes0 = split_params(init_one())
+    values = tree_map(lambda v: v.new_empty((n,) + tuple(v.shape)), values0)
+
+    def copy_in(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                copy_in(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
+    copy_in(values, values0, 0)
+    del values0
+    for i in range(1, n):
+        copy_in(values, split_params(init_one())[0], i)
+    axes = tree_map(lambda a: ("layers",) + tuple(a), axes0)
+    return values, axes
+
+
+def _generator(seed: int, device: DeviceLike) -> torch.Generator:
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+
+
+def init_lm_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda") -> Tuple[Params, Any]:
+    """(values, axes): embedding + stacked units + final norm (+ lm head),
+    drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``.
+
+    Stacked unit leaves get a leading ``layers`` logical axis.
+    """
+    cfg.validate()
+    gen = _generator(seed, device)
+    embed_v, embed_a = split_params(init_embedding(cfg, gen))
+    unit_values, unit_axes = _stacked_init(cfg.n_units, lambda: init_unit(cfg, gen))
+    norm_v, norm_a = split_params(init_norm(cfg, cfg.d_model, gen.device))
+
+    values: Params = {"embed": embed_v, "units": unit_values, "final_norm": norm_v}
+    axes: Params = {"embed": embed_a, "units": unit_axes, "final_norm": norm_a}
+
+    head_p = init_unembed(cfg, gen)
+    if head_p is not None:
+        values["lm_head"], axes["lm_head"] = split_params(head_p)
+    return values, axes
+
+
+def _layer(tree: Params, i: int) -> Params:
+    return tree_map(lambda t: t[i], tree)
+
+
+# -------------------------------------------------------------- forward ---
+
+def _inputs(cfg: ModelConfig, params: Params, tokens, embeds) -> torch.Tensor:
+    if embeds is None:
+        if tokens is None:
+            raise ValueError("pass tokens or embeds")
+        return embed_tokens(cfg, params["embed"], tokens)
+    return embeds.to(compute_dtype(cfg))
+
+
+def lm_forward(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: Optional[torch.Tensor] = None,      # [b, s] int
+    embeds: Optional[torch.Tensor] = None,      # [b, s, d] (VLM/audio stubs)
+    opts: ForwardOptions = ForwardOptions(),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits [b, s, vocab] f32, moe_aux)."""
+    opts.check()
+    unit = cfg.pattern_unit()
+    x = _inputs(cfg, params, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for u in range(cfg.n_units):
+        unit_params = _layer(params["units"], u)
+        for i, spec in enumerate(unit):
+            x, _, a = apply_sublayer(cfg, unit_params[f"sub{i}"], spec, x, mode="train",
+                                     positions=positions, opts=opts)
+            aux = aux + a
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params["embed"], params.get("lm_head"), x)
+    return logits, aux
+
+
+# --------------------------------------------------------------- serving ---
+
+def init_lm_state(cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """Stacked decode state: one unit state repeated to n_units, each unit's
+    its own memory (the reference's ``broadcast_to`` is a value; an
+    ``expand`` here would alias every unit's cache to one buffer)."""
+    unit_state = init_unit_state(cfg, batch, max_len, compute_dtype(cfg), device)
+    return tree_map(lambda x: x.unsqueeze(0).repeat((cfg.n_units,) + (1,) * x.ndim), unit_state)
+
+
+def lm_prefill(
+    cfg: ModelConfig,
+    params: Params,
+    state: Dict[str, Any],
+    tokens: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,
+    opts: ForwardOptions = ForwardOptions(),
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Populate the cache from a prompt (cache_len 0 at entry).
+
+    Returns (last-token logits [b, vocab] f32, new state).
+    """
+    opts.check()
+    unit = cfg.pattern_unit()
+    x = _inputs(cfg, params, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    new_states = []
+    for u in range(cfg.n_units):
+        unit_params, unit_state = _layer(params["units"], u), _layer(state, u)
+        new_state = {}
+        for i, spec in enumerate(unit):
+            x, new_state[f"sub{i}"], _ = apply_sublayer(
+                cfg, unit_params[f"sub{i}"], spec, x, mode="prefill",
+                positions=positions, state=unit_state[f"sub{i}"], opts=opts)
+        new_states.append(new_state)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params["embed"], params.get("lm_head"), x[:, -1:, :])
+    return logits[:, 0, :], _stack(new_states)
+
+
+def lm_decode_step(
+    cfg: ModelConfig,
+    params: Params,
+    state: Dict[str, Any],
+    tokens: torch.Tensor,       # [b, 1] int — the newest token
+    cache_len: int,             # tokens already in cache (a tensor is read to the host once)
+    opts: ForwardOptions = ForwardOptions(),
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One serving step: returns (logits [b, vocab] f32, new state)."""
+    opts.check()
+    cache_len = int(cache_len)
+    unit = cfg.pattern_unit()
+    x = embed_tokens(cfg, params["embed"], tokens)
+    new_states = []
+    for u in range(cfg.n_units):
+        unit_params, unit_state = _layer(params["units"], u), _layer(state, u)
+        new_state = {}
+        for i, spec in enumerate(unit):
+            x, new_state[f"sub{i}"], _ = apply_sublayer(
+                cfg, unit_params[f"sub{i}"], spec, x, mode="decode",
+                state=unit_state[f"sub{i}"], cache_len=cache_len, opts=opts)
+        new_states.append(new_state)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params["embed"], params.get("lm_head"), x)
+    return logits[:, 0, :], _stack(new_states)
+
+
+# ------------------------------------------------------- encoder-decoder ---
+
+def init_encdec_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda") -> Tuple[Params, Any]:
+    """Whisper-style: encoder stack (bidirectional) + decoder stack with
+    cross-attention. The encoder consumes precomputed frame embeddings
+    (the conv frontend is a stub)."""
+    cfg.validate()
+    gen = _generator(seed, device)
+    dev = gen.device
+
+    # Encoder: plain attention+MLP sublayers, bidirectional.
+    enc_values, enc_axes = _stacked_init(cfg.n_encoder_layers, lambda: {
+        "attn_norm": init_norm(cfg, cfg.d_model, dev),
+        "attn": init_attention(cfg, gen),
+        "ffn_norm": init_norm(cfg, cfg.d_model, dev),
+        "mlp": init_mlp(cfg, gen),
+    })
+    # Decoder: self-attn + cross-attn + MLP.
+    dec_values, dec_axes = _stacked_init(cfg.n_layers, lambda: {
+        "self_norm": init_norm(cfg, cfg.d_model, dev),
+        "self_attn": init_attention(cfg, gen),
+        "cross_norm": init_norm(cfg, cfg.d_model, dev),
+        "cross_attn": init_attention(cfg, gen),
+        "ffn_norm": init_norm(cfg, cfg.d_model, dev),
+        "mlp": init_mlp(cfg, gen),
+    })
+    embed_v, embed_a = split_params(init_embedding(cfg, gen))
+    pos_v, pos_a = split_params(
+        {"enc": normal_init(gen, (cfg.encoder_seq, cfg.d_model), (None, "embed"), param_dtype(cfg))}
+    )
+    enorm_v, enorm_a = split_params(init_norm(cfg, cfg.d_model, dev))
+    dnorm_v, dnorm_a = split_params(init_norm(cfg, cfg.d_model, dev))
+
+    values = {"embed": embed_v, "pos": pos_v, "encoder": enc_values, "enc_norm": enorm_v,
+              "decoder": dec_values, "final_norm": dnorm_v}
+    axes = {"embed": embed_a, "pos": pos_a, "encoder": enc_axes, "enc_norm": enorm_a,
+            "decoder": dec_axes, "final_norm": dnorm_a}
+    return values, axes
+
+
+def _encode(cfg: ModelConfig, params: Params, enc_embeds: torch.Tensor,
+            opts: Optional[ForwardOptions] = None) -> torch.Tensor:
+    """Encoder forward on precomputed frame embeddings [b, s_enc, d]."""
+    if opts is not None:
+        opts.check()
+    x = enc_embeds.to(compute_dtype(cfg))
+    s = x.shape[1]
+    x = x + params["pos"]["enc"][:s].to(x.dtype)[None]
+    positions = torch.arange(s, device=x.device)
+    for i in range(cfg.n_encoder_layers):
+        layer = _layer(params["encoder"], i)
+        h = apply_norm(cfg, layer["attn_norm"], x)
+        q, k, v = project_qkv(cfg, layer["attn"], h, positions)
+        x = x + project_out(layer["attn"], attention_reference(q, k, v, causal=False))
+        x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ffn_norm"], x))
+    return apply_norm(cfg, params["enc_norm"], x)
+
+
+def _cross_kv(layer: Params, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V of the encoder output (no RoPE on k)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, layer["cross_attn"]["wk"].to(enc_out.dtype))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, layer["cross_attn"]["wv"].to(enc_out.dtype))
+    return k, v
+
+
+def _cross_attend(cfg: ModelConfig, layer: Params, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg, layer["cross_norm"], x)
+    # queries from decoder; keys/values from encoder output
+    q = torch.einsum("bsd,dhk->bshk", h, layer["cross_attn"]["wq"].to(h.dtype))
+    k, v = _cross_kv(layer, enc_out)
+    return x + project_out(layer["cross_attn"], attention_reference(q, k, v, causal=False))
+
+
+def encdec_forward(
+    cfg: ModelConfig,
+    params: Params,
+    enc_embeds: torch.Tensor,       # [b, s_enc, d] precomputed frame embeddings
+    dec_tokens: torch.Tensor,       # [b, s_dec]
+    opts: ForwardOptions = ForwardOptions(),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scoring forward. Returns (logits [b, s_dec, vocab] f32, aux=0)."""
+    enc_out = _encode(cfg, params, enc_embeds, opts)
+    x = embed_tokens(cfg, params["embed"], dec_tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.n_layers):
+        layer = _layer(params["decoder"], i)
+        h = apply_norm(cfg, layer["self_norm"], x)
+        q, k, v = project_qkv(cfg, layer["self_attn"], h, positions)
+        x = x + project_out(layer["self_attn"], attention_reference(q, k, v, causal=True))
+        x = _cross_attend(cfg, layer, x, enc_out)
+        x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ffn_norm"], x))
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params["embed"], None, x)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_encdec_state(cfg: ModelConfig, batch: int, max_len: int, s_enc: int,
+                      device: DeviceLike = "cuda") -> Dict[str, Any]:
+    dev = resolve_device(device)
+    dt = compute_dtype(cfg)
+    hd = cfg.resolved_head_dim
+    kv = init_kv_cache(batch, max_len, cfg.n_kv_heads, hd, dt, dev)
+    cross = (cfg.n_layers, batch, s_enc, cfg.n_kv_heads, hd)
+    return {
+        "self_kv": tree_map(lambda x: x.unsqueeze(0).repeat((cfg.n_layers,) + (1,) * x.ndim), kv),
+        # cross K/V computed once at prefill: [L, b, s_enc, K, hd]
+        "cross_k": torch.zeros(cross, dtype=dt, device=dev),
+        "cross_v": torch.zeros(cross, dtype=dt, device=dev),
+    }
+
+
+def encdec_prefill(
+    cfg: ModelConfig,
+    params: Params,
+    state: Dict[str, Any],
+    enc_embeds: torch.Tensor,
+    opts: ForwardOptions = ForwardOptions(),
+) -> Dict[str, Any]:
+    """Run the encoder and precompute per-layer cross K/V."""
+    opts.check()
+    enc_out = _encode(cfg, params, enc_embeds)
+    kvs = [_cross_kv(_layer(params["decoder"], i), enc_out) for i in range(cfg.n_layers)]
+    return {**state, "cross_k": torch.stack([k for k, _ in kvs]), "cross_v": torch.stack([v for _, v in kvs])}
+
+
+def encdec_decode_step(
+    cfg: ModelConfig,
+    params: Params,
+    state: Dict[str, Any],
+    tokens: torch.Tensor,          # [b, 1]
+    cache_len: int,
+    opts: ForwardOptions = ForwardOptions(),
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    opts.check()
+    cache_len = int(cache_len)
+    x = embed_tokens(cfg, params["embed"], tokens)
+    s_enc = state["cross_k"].shape[2]
+    positions = torch.arange(cache_len, cache_len + 1, device=x.device)
+    new_kv = []
+    for i in range(cfg.n_layers):
+        layer, kv = _layer(params["decoder"], i), _layer(state["self_kv"], i)
+        h = apply_norm(cfg, layer["self_norm"], x)
+        q, k, v = project_qkv(cfg, layer["self_attn"], h, positions)
+        kv = update_kv_cache(kv, k, v, cache_len)
+        x = x + project_out(layer["self_attn"], decode_attention(q, kv["k"], kv["v"], cache_len + 1))
+        # cross attention over the (fixed) encoder output
+        hc = apply_norm(cfg, layer["cross_norm"], x)
+        qc = torch.einsum("bsd,dhk->bshk", hc, layer["cross_attn"]["wq"].to(hc.dtype))
+        oc = decode_attention(qc, state["cross_k"][i], state["cross_v"][i], s_enc)
+        x = x + project_out(layer["cross_attn"], oc)
+        x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ffn_norm"], x))
+        new_kv.append(kv)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params["embed"], None, x)
+    return logits[:, 0, :], {**state, "self_kv": _stack(new_kv)}

@@ -1,12 +1,14 @@
-"""Serving: the ranking oracle.
+"""Serving: the inference engine and the ranking oracle.
 
-Ranking-as-a-service (:mod:`repro_torch.serve.oracle`,
-:mod:`repro_torch.serve.cache`) — the census-backed dispatch oracle, whose
-hot path is pure dict lookups over the cache and touches no device. The
-reference's model-serving engine (``repro.serve.engine``) has no
-counterpart in the port. Everything is exported lazily (PEP 562), as in
-the reference, so importing this package costs nothing until a name is
-used.
+Two unrelated kinds of "serve" live here, so everything is exported lazily
+(PEP 562), as in the reference, and importing this package costs nothing
+until a name is used:
+
+* the model-serving engine (:mod:`repro_torch.serve.engine`,
+  :mod:`repro_torch.serve.quant`) — the model stack on a device;
+* ranking-as-a-service (:mod:`repro_torch.serve.oracle`,
+  :mod:`repro_torch.serve.cache`) — the census-backed dispatch oracle,
+  whose hot path is pure dict lookups over the cache and touches no device.
 """
 
 from typing import Any
@@ -23,6 +25,10 @@ _EXPORTS = {
     "CONFIDENCE_MEASURED": "repro_torch.serve.cache",
     "CONFIDENCE_BUCKETED": "repro_torch.serve.cache",
     "CONFIDENCE_MODEL_ONLY": "repro_torch.serve.cache",
+    # the inference engine
+    "ServingEngine": "repro_torch.serve.engine",
+    "make_prefill": "repro_torch.serve.engine",
+    "make_serve_step": "repro_torch.serve.engine",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -17,12 +17,12 @@ import jax.numpy as jnp  # noqa: E402
 from repro.autotune.variants import attention_site as jax_attention_site  # noqa: E402
 from repro.autotune.variants import ssd_chunk_site as jax_ssd_chunk_site  # noqa: E402
 from repro_torch.autotune import attention_site, rank_site_costmodel, ssd_chunk_site  # noqa: E402
-from repro_torch.models import attention as tatt  # noqa: E402
 from repro_torch.models.layers import softcap  # noqa: E402
 from repro_torch.models.mamba2 import ssd_reference  # noqa: E402
 
-# the module, not the like-named function ``repro.models.attention`` exports
+# the modules, not the like-named functions the two ``models`` packages export
 jatt = importlib.import_module("repro.models.attention")
+tatt = importlib.import_module("repro_torch.models.attention")
 
 
 def _qkv(b=2, s=128, h=4, kv=2, d=16, seed=0):

@@ -213,6 +213,12 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.predict, repro_torch.serve.oracle, repro_torch.api\n"
         "import repro_torch.launch.oracle, repro_torch.launch.predict\n"
         "from repro_torch import run_census, query\n"
+        "import importlib, pkgutil, repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')\n"
+        "        if not m.name.endswith('__main__')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert {'repro_torch.models.model', 'repro_torch.serve.engine', 'repro_torch.launch.serve',\n"
+        "        'repro_torch.configs.qwen2_moe_a2_7b'} <= set(mods), mods\n"
         "assert not [m for m, mod in sys.modules.items()"
         " if mod is not None and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "print('ok')\n"
