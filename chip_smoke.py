@@ -124,7 +124,23 @@ Phases (any failure exits non-zero and prints no result):
    profiled kernels; ``moe_dispatch_site`` through ``rank_site`` at the
    reference's defaults and at qwen2-moe's expert widths; the three hand
    kernels' counters over these steps, which must read 0; and
-   ``python -m repro_torch.launch.serve`` once, which must exit 0.
+   ``python -m repro_torch.launch.serve`` once, which must exit 0;
+15. training (``repro_torch.train``, ``data``, ``checkpoint``), which reaches
+   no hand kernel, as the reference's training path reaches no Pallas
+   kernel: granite-moe-3b-a800m and mamba2-1.3b at full width in bf16, not
+   cut (weights drawn on the card), through ``ElasticTrainer`` with AdamW on
+   a cosine schedule and ``remat="full"``, batch 4 x 2048 tokens: one
+   warm-up and five timed steps, whose losses must be finite and fall, the
+   first near ln V; step ms, tokens/s, the model TFLOP a step and its share
+   of the bf16 peak, the optimizer's ms beside its byte bound, peak memory
+   against 14 bytes a parameter of state plus the bf16 grads, and one
+   profiled step's kernels and idle share; every LM arch's SMOKE config
+   (f32), one step on the card against the CPU from the same parameters and
+   batch (loss and grad norm held); the reference's membership-change
+   sequence on the card (12 steps, data width 4 -> 2 before step 6) held to
+   an uninterrupted run; the hand kernels' counters (recorded, expected 0);
+   and ``python -m repro_torch.launch.train --steps 8 --simulate-failure 4:1``,
+   which must exit 0.
 
 Each kernel's launch counter is set to 0 just before each path and read just
 after it. The next-to-last line is a JSON object with the kernels' numbers,
@@ -195,6 +211,14 @@ SERVE_SHAPE = (4, 128, 32)             # full width: batch, prompt, new tokens (
 MOE_SITE_SIZES = ({}, {"tokens": 1024, "d": 2048, "e": 60, "top_k": 4, "d_ff": 1408})
 HBM_BYTES_PER_S = 3.35e12              # the H100 SXM sheet's memory rate
 LAUNCHER = ("--arch", "qwen2-moe-a2.7b", "--device", "cuda", "--temperature", "0")
+TRAIN_ARCHS = ("granite-moe-3b-a800m", "mamba2-1.3b")  # full width, bf16 (phase 15)
+TRAIN_SHAPE = (4, 2048)                # global batch, sequence: 8192 tokens a step
+TRAIN_STEPS = (1, 5)                   # warm-up steps, timed steps
+TRAIN_SCHEDULE = (3e-4, 10, 100)       # cosine: peak lr and warm-up of the launcher's defaults, total steps
+TRAIN_SMOKE_TOL = 1e-4                 # SMOKE f32 loss and grad norm, card against CPU: tol * (1 + |cpu|)
+ELASTIC_TOL = 1e-5                     # resumed against uninterrupted losses: tol * (1 + |loss|)
+TRAIN_LAUNCHER = ("--steps", "8", "--simulate-failure", "4:1")
+ADAMW_BYTES_PER_PARAM = 28             # read master, m, v (f32) and the grad (bf16); write them and the param
 TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
 
 # Planted faults in the GEMM that the 1000^3 f32 comparison at the 64^3 tile
@@ -1966,10 +1990,11 @@ def decode_weight_bytes(cfg, params, batch):
     return total
 
 
-def profile_step(torch, call):
+def profile_step(torch, call, top=0):
     """``call()`` once under ``torch.profiler``: the kernels it launched,
     their summed device time and the span from the first kernel's start to
-    the last one's end (device ms), and the host's ms for the call."""
+    the last one's end (device ms), the host's ms for the call, and the
+    ``top`` kernel names by summed device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1984,8 +2009,14 @@ def profile_step(torch, call):
         return {"kernels": 0, "device_busy_ms": "not measured (no device events traced)", "host_ms": host_ms}
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    heaviest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {"kernels": len(kernels), "device_busy_ms": busy, "device_span_ms": span,
-            "device_idle_share_of_span": 1 - busy / span if span else 0.0, "host_ms_profiled": host_ms}
+            "device_idle_share_of_span": 1 - busy / span if span else 0.0, "host_ms_profiled": host_ms,
+            **({"top_kernels_ms_count": [[name[:90], ms, n] for name, (ms, n) in heaviest]} if top else {})}
 
 
 def serve_full_width(torch, T, engine_cls, cfg, dev, say):
@@ -2206,6 +2237,227 @@ def phase_models(torch, kmod, fmod, smod, card, device="cuda", archs=None, full_
         if run.returncode != 0:
             log(run.stderr[-4000:])
             sys.exit(f"chip_smoke: the serving launcher exited {run.returncode}")
+    return out
+
+
+def train_full_width(torch, T, cfg, dev, peak, say, work):
+    """One arch at full width in bf16 (not cut), weights drawn on the card
+    from seed 0, trained through ``ElasticTrainer`` with AdamW on a cosine
+    schedule, ``remat="full"`` and the launcher's attention: the warm-up and
+    timed steps (each step's loss), the optimizer's device time beside its
+    byte bound, peak memory against 14 bytes a parameter and one profiled
+    step. No checkpoint is written (the state is tens of GB). Returns the
+    record."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import AdamW, ElasticConfig, ElasticTrainer, HostMesh, cosine_schedule
+
+    optimizer_events = []
+
+    class TimedAdamW(AdamW):
+        """AdamW whose updates are bracketed by CUDA events."""
+
+        def update(self, *args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = super().update(*args, **kwargs)
+            end.record()
+            optimizer_events.append((start, end))
+            return out
+
+    b, s = TRAIN_SHAPE
+    warm, timed = TRAIN_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = ElasticTrainer(
+        cfg, TimedAdamW(schedule=cosine_schedule(*TRAIN_SCHEDULE)),
+        SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b)),
+        CheckpointManager(str(work / cfg.name)), HostMesh,
+        opts=T.ForwardOptions(attn_impl="reference", remat="full"),
+        elastic_cfg=ElasticConfig(checkpoint_every=10 ** 9), device=dev)
+    t0 = time.perf_counter()
+    trainer.start(n_hosts=1, init_params_fn=lambda: T.init_lm_params(cfg, seed=0, device=dev)[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state = trainer.state
+    n_params = sum(x.numel() for x in T.layers.tree_leaves(state.params))
+    state_bytes = sum(x.numel() * x.element_size() for tree in (state.params, *state.opt[1:])
+                      for x in T.layers.tree_leaves(tree))
+    del state
+    history, step_ms = [], []
+    for _ in range(warm + timed):
+        t0 = time.perf_counter()
+        history += trainer.run(1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    optimizer_ms = [start.elapsed_time(end) for start, end in optimizer_events]
+    peak_bytes = torch.cuda.max_memory_allocated()
+    profiled = profile_step(torch, lambda: trainer.run(1), top=8)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    losses = [h["loss"] for h in history]
+    tokens = b * s
+    median_ms = sorted(step_ms[warm:])[timed // 2]
+    model_flops = T.training_flops(cfg, b, s)
+    dense_flops = 6.0 * T.param_counts(cfg).active * tokens
+    opt_median = sorted(optimizer_ms[warm:])[timed // 2]
+    opt_bound_ms = ADAMW_BYTES_PER_PARAM * n_params / peak["bytes_per_s"] * 1e3
+    rec = {
+        "batch": b, "seq": s, "tokens_per_step": tokens, "remat": "full", "attn_impl": "reference",
+        "schedule": list(TRAIN_SCHEDULE), "params": n_params, "state_bytes": state_bytes,
+        "init_seconds": init_s, "losses": losses, "grad_norms": [h["grad_norm"] for h in history],
+        "ln_vocab": math.log(cfg.vocab_size), "step_ms": step_ms, "step_ms_median": median_ms,
+        "tokens_per_s": tokens / (median_ms / 1e3),
+        "model_tflop_per_step": model_flops / 1e12, "six_n_active_t_tflop": dense_flops / 1e12,
+        "bf16_peak_share": model_flops / (median_ms / 1e3) / peak["bf16_flops"],
+        "optimizer_ms": optimizer_ms, "optimizer_ms_median": opt_median,
+        "optimizer_bound_ms": opt_bound_ms, "optimizer_bound_by": "bytes",
+        "max_memory_allocated_bytes": peak_bytes,
+        "predicted_bytes_14_per_param_plus_bf16_grads": 16 * n_params, "step_profile": profiled,
+    }
+    say(f"{n_params / 1e9:.3f} B parameters, state {state_bytes / 1e9:.2f} GB (init {init_s:.1f} s); "
+        f"b {b} x s {s}, remat full, attention reference; losses {['%.4f' % x for x in losses]} "
+        f"(ln V = {rec['ln_vocab']:.3f}), grad norms {['%.3f' % x for x in rec['grad_norms']]}")
+    say(f"step {median_ms:.1f} ms (median of {timed}; all {['%.1f' % x for x in step_ms]}), "
+        f"{rec['tokens_per_s']:.0f} tokens/s; {model_flops / 1e12:.2f} model TFLOP a step "
+        f"(6 N_active T {dense_flops / 1e12:.2f}), {rec['bf16_peak_share']:.3f} of the bf16 peak; optimizer "
+        f"{opt_median:.2f} ms against a {opt_bound_ms:.2f} ms byte bound ({ADAMW_BYTES_PER_PARAM} B a parameter); "
+        f"peak memory {peak_bytes / 1e9:.2f} GB against {16 * n_params / 1e9:.2f} GB predicted "
+        f"(14 B a parameter of state + bf16 grads); profiled step: "
+        f"{ {k: v for k, v in profiled.items() if k != 'top_kernels_ms_count'} }")
+    for name, ms, n in profiled.get("top_kernels_ms_count", []):
+        say(f"  {ms:9.2f} ms in {n:5d} launches: {name}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        sys.exit(f"chip_smoke: {cfg.name} at full width: losses not finite and decreasing: {losses}")
+    if abs(losses[0] - rec["ln_vocab"]) > 0.15 * rec["ln_vocab"]:
+        sys.exit(f"chip_smoke: {cfg.name}: first loss {losses[0]} is not near ln V = {rec['ln_vocab']}")
+    return rec
+
+
+def train_smoke_on_card(torch, T, train, data, cfg, dev):
+    """One train step of a SMOKE config (f32) on the card and on the CPU from
+    the same parameters and batch; returns both steps' loss and grad norm."""
+    params_cpu, _ = T.init_lm_params(cfg, seed=0, device="cpu")
+    params_card = T.layers.tree_map(lambda x: x.to(dev, copy=True), params_cpu)  # each step updates its own
+    batch = data.SyntheticLM(data.DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)).global_batch(0)
+    opt = train.AdamW(schedule=train.cosine_schedule(*TRAIN_SCHEDULE))
+    out = {}
+    for where, params in (("cpu", params_cpu), ("card", params_card)):
+        step = train.make_train_step(cfg, opt, T.ForwardOptions(attn_impl="reference"))
+        _, metrics = step(train.init_train_state(cfg, opt, params), batch)
+        out[where] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+    out["share_of_tolerance"] = max(abs(out["card"][k] - out["cpu"][k]) / (TRAIN_SMOKE_TOL * (1 + abs(out["cpu"][k])))
+                                    for k in ("loss", "grad_norm"))
+    return out
+
+
+def elastic_on_card(torch, T, train, data, ckpt, dev, work):
+    """The reference's membership-change sequence on the card (its system
+    test's config, f32): 12 steps, a checkpoint every 4, the data width 4 ->
+    2 before step 6; and the same 12 steps uninterrupted. Returns the record."""
+    cfg = T.ModelConfig(name="sys-test", n_layers=4, d_model=64, n_heads=8, n_kv_heads=4,
+                        d_ff=128, vocab_size=512, dtype="float32", param_dtype="float32")
+
+    def run(name, events):
+        trainer = train.ElasticTrainer(
+            cfg, train.AdamW(schedule=train.cosine_schedule(1e-3, 2, 50)),
+            data.SyntheticLM(data.DataConfig(vocab_size=512, seq_len=32, global_batch=8)),
+            ckpt.CheckpointManager(str(work / name), keep=3), lambda n: train.HostMesh(data=n, model=2),
+            opts=T.ForwardOptions(attn_impl="reference"), elastic_cfg=train.ElasticConfig(checkpoint_every=4),
+            device=dev)
+        trainer.start(n_hosts=4, init_params_fn=lambda: T.init_lm_params(cfg, seed=0, device=dev)[0])
+        history = trainer.run(12, membership_events=events)
+        return trainer, history
+
+    trainer, history = run("elastic", {6: 2})
+    _, straight = run("straight", {})
+    losses, ref = [h["loss"] for h in history], [h["loss"] for h in straight]
+    rec = {"steps": [h["step"] for h in history], "losses": losses, "uninterrupted_losses": ref,
+           "data_width_after": trainer.mesh.shape["data"], "checkpoints": ckpt.all_steps(str(work / "elastic")),
+           "bit_equal": losses == ref,
+           "max_share_of_tolerance": max(abs(a - r) / (ELASTIC_TOL * (1 + abs(r))) for a, r in zip(losses, ref))}
+    return rec
+
+
+def phase_train(torch, kmod, fmod, smod, card, device="cuda", full_archs=TRAIN_ARCHS, archs=None,
+                launcher=TRAIN_LAUNCHER):
+    """Phase 15: training on the card (see the module docstring). Returns the
+    record; the three hand kernels' launch counters over the phase are its
+    ``kernel_launches``, recorded (the training path reaches no hand kernel)."""
+    import repro_torch.checkpoint as ckpt
+    import repro_torch.data as data
+    import repro_torch.models as T
+    import repro_torch.train as train
+    from repro_torch.configs import ARCH_NAMES, get_config
+
+    def say(msg):
+        log(f"[15 train] {msg} [{card}]")
+
+    dev = torch.device(device)
+    peak = peaks(torch.cuda.get_device_name(0))
+    reset_gemm_counts(kmod)
+    fmod.reset_counts()
+    smod.ssd_scan_kernel.launches = 0
+    out = {"full": {}, "smoke": {}, "seconds": {}}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+
+    # 1-2. full width, bf16
+    for arch in full_archs:
+        t0 = time.perf_counter()
+        out["full"][arch] = train_full_width(torch, T, get_config(arch), dev, peak,
+                                             lambda msg, a=arch: say(f"{a} FULL bf16: {msg}"), work)
+        out["seconds"][arch] = time.perf_counter() - t0
+
+    # 3. every LM arch's SMOKE config, f32, one step on the card against the CPU
+    t0 = time.perf_counter()
+    for arch in archs or ARCH_NAMES:
+        cfg = get_config(arch, smoke=True)
+        if cfg.is_encoder_decoder:
+            continue
+        rec = out["smoke"][arch] = train_smoke_on_card(torch, T, train, data, cfg, dev)
+        say(f"{arch} SMOKE f32, one step: loss card {rec['card']['loss']:.7f} cpu {rec['cpu']['loss']:.7f}, "
+            f"grad norm card {rec['card']['grad_norm']:.7f} cpu {rec['cpu']['grad_norm']:.7f} "
+            f"({rec['share_of_tolerance']:.3f} of {TRAIN_SMOKE_TOL} x (1 + |cpu|))")
+    bad = [a for a, r in out["smoke"].items() if r["share_of_tolerance"] > 1]
+    if bad:
+        sys.exit(f"chip_smoke: SMOKE train steps whose card loss or grad norm disagree with the CPU's: {bad}")
+    out["seconds"]["smoke"] = time.perf_counter() - t0
+
+    # 4. elastic: a membership change on the card, against an uninterrupted run
+    t0 = time.perf_counter()
+    rec = out["elastic"] = elastic_on_card(torch, T, train, data, ckpt, dev, work)
+    say(f"elastic, 12 steps, data width 4 -> {rec['data_width_after']} before step 6: steps {rec['steps']}, "
+        f"losses {['%.4f' % x for x in rec['losses']]}, checkpoints {rec['checkpoints']}; against the "
+        f"uninterrupted run: bit-equal {rec['bit_equal']}, {rec['max_share_of_tolerance']:.3f} of {ELASTIC_TOL}")
+    losses = rec["losses"]
+    if (rec["steps"] != list(range(12)) or not all(math.isfinite(x) for x in losses)
+            or not losses[-1] < losses[0] or rec["data_width_after"] != 2 or rec["max_share_of_tolerance"] > 1):
+        sys.exit(f"chip_smoke: the elastic run on the card failed its checks: {rec}")
+    out["seconds"]["elastic"] = time.perf_counter() - t0
+
+    # 5. the hand kernels' counters over the in-process steps (recorded)
+    out["kernel_launches"] = {"gemm": kmod.matmul_kernel.launches,
+                              "flash_attention": fmod.flash_attention_kernel.launches,
+                              "ssd": smod.ssd_scan_kernel.launches}
+    say(f"hand-kernel launches over the phase's in-process steps: {out['kernel_launches']} (expected 0, 0, 0)")
+
+    # 6. the training launcher, as a user runs it
+    if launcher:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        argv = [*launcher, "--ckpt-dir", str(work / "launcher")]
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        out["launcher"] = {"argv": argv, "rc": run.returncode, "stdout": run.stdout.strip(),
+                           "seconds": time.perf_counter() - t0}
+        say(f"python -m repro_torch.launch.train {' '.join(argv)}: exit {run.returncode} in "
+            f"{out['launcher']['seconds']:.1f} s; " + run.stdout.strip().replace("\n", "; "))
+        if run.returncode != 0:
+            log(run.stderr[-4000:])
+            sys.exit(f"chip_smoke: the training launcher exited {run.returncode}")
+    shutil.rmtree(work)
     return out
 
 
@@ -2659,11 +2911,17 @@ def main():
     details["models"]["seconds"]["phase"] = time.perf_counter() - t_models
     mark("14 models")
     log(f"[14 models] phase 14 took {details['models']['seconds']['phase']:.1f} s [{card}]")
-    served = details["models"]["kernel_launches"]
-    gemm_launches["models[serve]"] = launches["models[serve]"] = served["gemm"]
-    for entry in flash["kernels"]:
-        entry["launches_by_path"]["models[serve]"] = served["flash_attention"]
-    ssd["kernel"]["launches_by_path"]["models[serve]"] = served["ssd"]
+    t_train = time.perf_counter()
+    details["train"] = phase_train(torch, kmod, fmod, smod, card)
+    details["train"]["seconds"]["phase"] = time.perf_counter() - t_train
+    mark("15 train")
+    log(f"[15 train] phase 15 took {details['train']['seconds']['phase']:.1f} s [{card}]")
+    for path_, phase_ in (("models[serve]", "models"), ("models[train]", "train")):
+        counts = details[phase_]["kernel_launches"]
+        gemm_launches[path_] = launches[path_] = counts["gemm"]
+        for entry in flash["kernels"]:
+            entry["launches_by_path"][path_] = counts["flash_attention"]
+        ssd["kernel"]["launches_by_path"][path_] = counts["ssd"]
     details["launches"] = launches
     details["phase_seconds"] = {name: t1 - t0 for (_, t0), (name, t1) in zip(marks, marks[1:])}
     log("[phases] seconds from main's start, by phase: " + json.dumps(

@@ -28,7 +28,6 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
-import torch
 
 
 def rng_state(rng: np.random.Generator) -> Dict[str, Any]:
@@ -248,6 +247,8 @@ class WallClockTimer(Timer):
         return dict(self._inner_repeats)
 
     def _checked_first_measure(self, name: str, fn: Callable[[], object]) -> float:
+        import torch
+
         for attempt in range(self.NONBLOCKING_ATTEMPTS):
             t0 = time.perf_counter()
             fn()

@@ -2,19 +2,24 @@
 
 from __future__ import annotations
 
-from typing import Union
+from typing import TYPE_CHECKING, Union
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
-DeviceLike = Union[str, torch.device]
+# A string annotation: the host-only surfaces (census planner, fsck, the
+# oracle) import this module and must not pay torch's import.
+DeviceLike = Union[str, "torch.device"]
 
 
-def resolve_device(device: DeviceLike) -> torch.device:
+def resolve_device(device: DeviceLike) -> "torch.device":
     """``torch.device(device)``, refusing a CUDA device the host lacks.
 
     The port never falls back to the CPU: a caller that wants the CPU says
     so with ``device="cpu"``.
     """
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -24,10 +29,12 @@ def resolve_device(device: DeviceLike) -> torch.device:
     return dev
 
 
-def block(out: torch.Tensor) -> torch.Tensor:
+def block(out: "torch.Tensor") -> "torch.Tensor":
     """Wait until ``out`` is computed: ``torch.cuda.synchronize()`` for a
     CUDA tensor (kernels are queued asynchronously); a CPU tensor is
     finished when the operation returns."""
     if out.is_cuda:
+        import torch
+
         torch.cuda.synchronize(out.device)
     return out

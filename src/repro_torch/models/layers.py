@@ -46,11 +46,13 @@ class P:
             )
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """``fn`` on every leaf of a tree of nested dicts (a non-dict is a leaf)."""
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn`` on every leaf of a tree of nested dicts (a non-dict is a leaf),
+    with the leaves at the same keys of the trees ``rest`` as its further
+    arguments (``jax.tree.map``'s form)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
@@ -115,8 +117,11 @@ def normal_init(
     stddev: float = 0.02,
 ) -> P:
     """``stddev`` times a standard normal truncated to [-2, 2], drawn in f32
-    on the generator's device and cast to ``dtype``."""
+    on the generator's device and cast to ``dtype`` (on the ``meta`` device
+    nothing is drawn)."""
     v = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    if v.is_meta:
+        return P(v.to(dtype), tuple(axes))
     torch.nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return P(v.mul_(stddev).to(dtype), tuple(axes))
 

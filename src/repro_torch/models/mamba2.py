@@ -14,6 +14,7 @@ out-projection. Like the reference's model path it reaches no kernel.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -87,14 +88,16 @@ def _segsum_decay(log_a: torch.Tensor) -> torch.Tensor:
 
     log_a [..., Q, h] -> L [..., h, Q, Q]. Numerically: difference of
     cumulative sums, taken in f64 before the f32 exp (see ``_cumsum64``);
-    the exp above the diagonal may overflow and is selected away, never
-    multiplied by a mask.
+    above the diagonal the difference is replaced by -inf before the exp,
+    which gives the same 0. Selecting after the exp would let an overflow
+    there (inf, at chunk 256 and real step sizes) reach the backward as
+    0 * inf = NaN.
     """
     q = log_a.shape[-2]
     cum = _cumsum64(log_a, dim=-2).movedim(-1, -2)         # [..., h, Q]
     diff = (cum[..., :, None] - cum[..., None, :]).float()  # [..., h, Q, Q]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=log_a.device))
-    return torch.where(mask, torch.exp(diff), 0.0)
+    return torch.exp(torch.where(mask, diff, -math.inf))
 
 
 def ssd_chunked(

@@ -13,15 +13,21 @@ Public entry points (pure functions over parameter trees):
 * ``init_encdec_params`` / ``encdec_forward`` / ``encdec_prefill`` /
   ``encdec_decode_step``                      — whisper-style enc-dec
 
-Activation checkpointing (``remat``) belongs to the training slice and the
-sharding options to the distributed one: this module refuses them.
+Activation checkpointing (``ForwardOptions.remat``) wraps the unit body, as
+the reference's ``jax.checkpoint`` does: ``full`` saves nothing inside a
+unit, ``dots`` saves the outputs of its matrix products (``mm``, ``addmm``,
+``bmm``) and ``dots_no_batch`` those without a batch dimension (``mm``,
+``addmm``). The sharding options belong to the distributed slice of the
+port: this module refuses them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..device import DeviceLike, resolve_device
 from .attention import (
@@ -55,12 +61,20 @@ from .layers import (
 _SHARDING_FIELDS = ("boundary_sharding", "interior_sharding", "attn_q_sharding",
                     "attn_kv_sharding", "moe_compute_shardings")
 
+# remat policy -> the ops whose outputs a unit's checkpoint saves (None: none)
+_SAVED_OPS = {
+    "full": None,
+    "dots": {torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default},
+    "dots_no_batch": {torch.ops.aten.mm.default, torch.ops.aten.addmm.default},
+}
+REMAT_POLICIES = ("none", *_SAVED_OPS)
+
 
 class ForwardOptions(NamedTuple):
     attn_impl: str = "auto"         # auto | reference | chunked
     moe_dispatch: str = "gather"    # gather | dense
     mamba_impl: str = "chunked"     # chunked | reference
-    remat: str = "none"             # only "none": checkpointing is the training slice's
+    remat: str = "none"             # none | full | dots | dots_no_batch
     # GQA contraction order: "grouped" keeps K/V at kv-head granularity;
     # "broadcast" repeats K/V to H query heads (equal FLOPs, more traffic).
     gqa_mode: str = "grouped"
@@ -76,10 +90,8 @@ class ForwardOptions(NamedTuple):
 
     def check(self) -> "ForwardOptions":
         """``self``, or NotImplementedError for what the port does not run yet."""
-        if self.remat != "none":
-            raise NotImplementedError(
-                f"remat={self.remat!r}: activation checkpointing comes with the training slice "
-                "of the port (train/); the model stack runs remat='none'")
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {self.remat!r}")
         set_ = [f for f in _SHARDING_FIELDS if getattr(self, f) is not None]
         if set_:
             raise NotImplementedError(
@@ -123,8 +135,19 @@ def _stacked_init(n: int, init_one) -> Tuple[Params, Any]:
     return values, axes
 
 
+class _ShapesOnly:
+    """Stands in for a generator on the ``meta`` device, which has none:
+    initialisation then gives every leaf's shape and dtype and draws
+    nothing (a checkpoint's restore target that costs no memory)."""
+
+    device = torch.device("meta")
+
+
 def _generator(seed: int, device: DeviceLike) -> torch.Generator:
-    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return _ShapesOnly()
+    return torch.Generator(device=dev).manual_seed(seed)
 
 
 def init_lm_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda") -> Tuple[Params, Any]:
@@ -148,8 +171,28 @@ def init_lm_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda")
     return values, axes
 
 
-def _layer(tree: Params, i: int) -> Params:
-    return tree_map(lambda t: t[i], tree)
+def _unstack(tree: Params, n: int) -> List[Params]:
+    """A tree of stacked leaves as ``n`` per-layer trees, each leaf unbound
+    once. (Indexing every layer with ``t[i]`` would make autograd write one
+    zero-filled gradient the size of the whole stack per layer.)"""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+def _remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` with the remat policy's saved
+    ops (``fn`` itself for ``"none"``)."""
+    if policy == "none":
+        return fn
+    saved, kwargs = _SAVED_OPS[policy], {}
+    if saved is not None:
+        def policy_fn(ctx, op, *args, **kwargs):
+            return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, policy_fn)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
 # -------------------------------------------------------------- forward ---
@@ -174,13 +217,21 @@ def lm_forward(
     unit = cfg.pattern_unit()
     x = _inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for u in range(cfg.n_units):
-        unit_params = _layer(params["units"], u)
+
+    def unit_body(x, unit_params):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, spec in enumerate(unit):
             x, _, a = apply_sublayer(cfg, unit_params[f"sub{i}"], spec, x, mode="train",
                                      positions=positions, opts=opts)
             aux = aux + a
+        return x, aux
+
+    body = _remat(unit_body, opts.remat)
+    auxes = []
+    for unit_params in _unstack(params["units"], cfg.n_units):
+        x, a = body(x, unit_params)
+        auxes.append(a)
+    aux = torch.stack(auxes).sum()
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], params.get("lm_head"), x)
     return logits, aux
@@ -213,8 +264,7 @@ def lm_prefill(
     x = _inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     new_states = []
-    for u in range(cfg.n_units):
-        unit_params, unit_state = _layer(params["units"], u), _layer(state, u)
+    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units), _unstack(state, cfg.n_units)):
         new_state = {}
         for i, spec in enumerate(unit):
             x, new_state[f"sub{i}"], _ = apply_sublayer(
@@ -240,8 +290,7 @@ def lm_decode_step(
     unit = cfg.pattern_unit()
     x = embed_tokens(cfg, params["embed"], tokens)
     new_states = []
-    for u in range(cfg.n_units):
-        unit_params, unit_state = _layer(params["units"], u), _layer(state, u)
+    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units), _unstack(state, cfg.n_units)):
         new_state = {}
         for i, spec in enumerate(unit):
             x, new_state[f"sub{i}"], _ = apply_sublayer(
@@ -302,12 +351,16 @@ def _encode(cfg: ModelConfig, params: Params, enc_embeds: torch.Tensor,
     s = x.shape[1]
     x = x + params["pos"]["enc"][:s].to(x.dtype)[None]
     positions = torch.arange(s, device=x.device)
-    for i in range(cfg.n_encoder_layers):
-        layer = _layer(params["encoder"], i)
+
+    def enc_step(x, layer):
         h = apply_norm(cfg, layer["attn_norm"], x)
         q, k, v = project_qkv(cfg, layer["attn"], h, positions)
         x = x + project_out(layer["attn"], attention_reference(q, k, v, causal=False))
-        x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ffn_norm"], x))
+        return x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ffn_norm"], x))
+
+    step = _remat(enc_step, opts.remat if opts is not None else "none")
+    for layer in _unstack(params["encoder"], cfg.n_encoder_layers):
+        x = step(x, layer)
     return apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -337,13 +390,17 @@ def encdec_forward(
     enc_out = _encode(cfg, params, enc_embeds, opts)
     x = embed_tokens(cfg, params["embed"], dec_tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        layer = _layer(params["decoder"], i)
+
+    def dec_step(x, layer):
         h = apply_norm(cfg, layer["self_norm"], x)
         q, k, v = project_qkv(cfg, layer["self_attn"], h, positions)
         x = x + project_out(layer["self_attn"], attention_reference(q, k, v, causal=True))
         x = _cross_attend(cfg, layer, x, enc_out)
-        x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ffn_norm"], x))
+        return x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ffn_norm"], x))
+
+    step = _remat(dec_step, opts.remat)
+    for layer in _unstack(params["decoder"], cfg.n_layers):
+        x = step(x, layer)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], None, x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -374,7 +431,7 @@ def encdec_prefill(
     """Run the encoder and precompute per-layer cross K/V."""
     opts.check()
     enc_out = _encode(cfg, params, enc_embeds)
-    kvs = [_cross_kv(_layer(params["decoder"], i), enc_out) for i in range(cfg.n_layers)]
+    kvs = [_cross_kv(layer, enc_out) for layer in _unstack(params["decoder"], cfg.n_layers)]
     return {**state, "cross_k": torch.stack([k for k, _ in kvs]), "cross_v": torch.stack([v for _, v in kvs])}
 
 
@@ -392,8 +449,8 @@ def encdec_decode_step(
     s_enc = state["cross_k"].shape[2]
     positions = torch.arange(cache_len, cache_len + 1, device=x.device)
     new_kv = []
-    for i in range(cfg.n_layers):
-        layer, kv = _layer(params["decoder"], i), _layer(state["self_kv"], i)
+    layers = zip(_unstack(params["decoder"], cfg.n_layers), _unstack(state["self_kv"], cfg.n_layers))
+    for i, (layer, kv) in enumerate(layers):
         h = apply_norm(cfg, layer["self_norm"], x)
         q, k, v = project_qkv(cfg, layer["self_attn"], h, positions)
         kv = update_kv_cache(kv, k, v, cache_len)

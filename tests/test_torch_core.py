@@ -212,13 +212,17 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.graphs, repro_torch.launch.explain\n"
         "import repro_torch.predict, repro_torch.serve.oracle, repro_torch.api\n"
         "import repro_torch.launch.oracle, repro_torch.launch.predict\n"
+        "import repro_torch.train, repro_torch.data, repro_torch.checkpoint, repro_torch.distributed\n"
+        "import repro_torch.launch.train, repro_torch.train.elastic\n"
         "from repro_torch import run_census, query\n"
         "import importlib, pkgutil, repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')\n"
         "        if not m.name.endswith('__main__')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert {'repro_torch.models.model', 'repro_torch.serve.engine', 'repro_torch.launch.serve',\n"
-        "        'repro_torch.configs.qwen2_moe_a2_7b'} <= set(mods), mods\n"
+        "        'repro_torch.configs.qwen2_moe_a2_7b', 'repro_torch.train.trainer', 'repro_torch.train.ft',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.checkpoint.manager',\n"
+        "        'repro_torch.distributed.compression'} <= set(mods), mods\n"
         "assert not [m for m, mod in sys.modules.items()"
         " if mod is not None and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "print('ok')\n"
@@ -226,5 +230,27 @@ def test_port_imports_with_jax_and_reference_blocked():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("modules", [
+    ("repro_torch.launch.sweep", "repro_torch.core.sweep"),      # the census planner
+    ("repro_torch.launch.fsck", "repro_torch.launch.queue"),
+    ("repro_torch.serve.oracle", "repro_torch.launch.oracle", "repro_torch.predict"),  # an oracle query
+    ("repro_torch.launch.explain", "repro_torch.core", "repro_torch.device"),
+])
+def test_host_only_surfaces_import_without_torch(modules):
+    """The census, fsck and oracle surfaces touch no device and import no
+    torch, as the reference's import no jax (its census workers never do)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {list(modules)!r}: importlib.import_module(m)\n"
+        "leaked = sorted(m for m in sys.modules if m == 'torch' or m.startswith('torch.'))\n"
+        "assert not leaked, leaked[:5]\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"

@@ -167,8 +167,11 @@ def test_unported_options_are_refused():
     cfg = get_config("granite-8b", smoke=True)
     params, _ = T.init_lm_params(cfg, seed=0, device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        T.lm_forward(cfg, params, tokens=tokens, opts=T.ForwardOptions(remat="full"))
+    # remat is ported (training slice): the policies run, an unknown one is refused
+    for remat in ("full", "dots", "dots_no_batch"):
+        T.lm_forward(cfg, params, tokens=tokens, opts=T.ForwardOptions(remat=remat))
+    with pytest.raises(ValueError, match="remat"):
+        T.lm_forward(cfg, params, tokens=tokens, opts=T.ForwardOptions(remat="everything"))
     with pytest.raises(NotImplementedError, match="distributed slice"):
         T.lm_forward(cfg, params, tokens=tokens, opts=T.ForwardOptions(boundary_sharding="x"))
     with pytest.raises(NotImplementedError, match="distributed slice"):
