@@ -34,7 +34,10 @@ Phases (any failure exits non-zero and prints no result):
    replayed) and ``jit=False`` (eager launches): each graph's output held to
    eager launches at 1e-4, the GEMM's counter held to 3 x its steps over
    3 replays, single-run times and verdicts of both modes side by side;
-6. the ``matmul_blocks`` site through ``rank_site``;
+6. the ``matmul_blocks`` site through ``rank_site``, on graph thunks (each
+   variant's timed thunk one CUDA graph, the reference's jitted thunk) and
+   again on eager thunks (``graphs.eager_thunks``): each route's selected
+   variant, single-run ms and verdict side by side;
 7. the flash-attention and SSD builds, with ``ptxas -v``'s report of every
    instantiation and the SASS check: every bf16 flash instantiation holds
    HGMMA (wgmma) and UTMALDG (TMA) and spills nothing; every f32 one holds
@@ -59,7 +62,8 @@ Phases (any failure exits non-zero and prints no result):
    (queued behind a device sleep, so that the host's enqueue cost stays
    out) beside the FFMA, 3xTF32 and byte bounds, and the NaN guard's cost;
 10. the ``attention_impl`` and ``ssd_chunk`` sites, each variant first held
-   against ``attention_reference`` / ``ssd_reference``, through ``rank_site``;
+   against ``attention_reference`` / ``ssd_reference``, through ``rank_site``
+   on graph thunks and again on eager thunks;
 11. the census on the card, through ``python -m repro_torch``: the default
    grid (120 chains, gram/distributive/solve/bilinear at five sizes; 220
    instances) by ``census run`` on wall clock, and the GPU kernel lane
@@ -72,8 +76,14 @@ Phases (any failure exits non-zero and prints no result):
    reference's metadata, inner repeats), a cost-model census on this host
    against the repo's golden store, and the verdicts of the two passes
    compared (recorded, not required to agree). The chain family's
-   algorithms run as CUDA graphs: none may outlive the in-process pass, and
-   ``torch.cuda.memory_allocated()`` is recorded before and after it;
+   algorithms and the measured thunks of the generalized families and the
+   kernel lane run as CUDA graphs: both kinds must be captured, none may
+   outlive the in-process pass, and ``torch.cuda.memory_allocated()`` is
+   recorded before and after it. The generalized families of the default
+   grid and the kernel lane run once more in this process on eager thunks
+   (``graphs.eager_thunks``), and the verdicts that change between graph
+   and eager thunks are recorded by family and size, with each route's
+   seconds;
 12. explain on the card, through ``python -m repro_torch explain``:
    ``calibrate --backend wall_clock`` fits the card's dispatch and GEMM
    efficiency curve (base machine: the H100 SXM sheet), then both CLI
@@ -114,17 +124,26 @@ Phases (any failure exits non-zero and prints no result):
    ``serve.engine``), which reach no hand kernel, as the reference's model
    path reaches no Pallas kernel: every arch's SMOKE config in f32 on the
    card against the same parameters on the CPU (forward logits, and decode
-   consistency on the card); qwen2-moe-a2.7b and mamba2-1.3b at full width
+   consistency on the card), and every LM arch's greedy tokens from the
+   serving engine on CUDA graphs held equal to its eager route's
+   (``graphs=False``; a sliding-window config across its ring's wrap:
+   prompt 130, max_len 160); qwen2-moe-a2.7b and mamba2-1.3b at full width
    in bf16, weights drawn on the card: decode consistency, ``moe_gather``
    against ``moe_dense`` on the first MoE sublayer's input with no token
-   dropped, ``ServingEngine.generate`` twice (batch 4, prompt 128, 32
-   tokens, greedy; the last logits held to each other) and for the prefill
-   alone, prefill and decode ms beside the decode step's weight-stream
-   bound, tokens/s and peak memory, and one decode step's host cost and
-   profiled kernels; ``moe_dispatch_site`` through ``rank_site`` at the
-   reference's defaults and at qwen2-moe's expert widths; the three hand
-   kernels' counters over these steps, which must read 0; and
-   ``python -m repro_torch.launch.serve`` once, which must exit 0;
+   dropped, and ``ServingEngine.generate`` on both routes, graphs (the
+   default: the decode step captured once per batch size, the prefill once
+   per prompt length) and eager: twice each (batch 4, prompt 128, 32
+   tokens, greedy; the last logits held to each other, and on graphs the
+   tokens of the two runs equal) and for the prefill alone, the graph
+   route's tokens held equal to the eager route's and its last logits
+   within the bf16 tolerance; for each route the capture seconds, prefill
+   and decode ms beside the decode step's weight-stream bound, tokens/s,
+   peak memory, and one decode step's host cost and profiled kernels and
+   idle share; ``moe_dispatch_site`` through ``rank_site`` at the
+   reference's defaults and at qwen2-moe's expert widths, on graph and on
+   eager thunks; the three hand kernels' counters over these steps, which
+   must read 0; and ``python -m repro_torch.launch.serve`` once (on graphs),
+   which must exit 0;
 15. training (``repro_torch.train``, ``data``, ``checkpoint``), which reaches
    no hand kernel, as the reference's training path reaches no Pallas
    kernel: granite-moe-3b-a800m and mamba2-1.3b at full width in bf16, not
@@ -149,6 +168,7 @@ the last is ``{"ok": true, "device": {...}}``. Details go to
 """
 
 import concurrent.futures
+import dataclasses
 import functools
 import gc
 import importlib.util
@@ -208,6 +228,8 @@ SMOKE_SHAPE = (2, 24)                  # batch, sequence (the reference's decode
 FULL_ARCHS = ("qwen2-moe-a2.7b", "mamba2-1.3b")
 CONSISTENCY_SHAPE = (2, 64)            # full width: batch, sequence
 SERVE_SHAPE = (4, 128, 32)             # full width: batch, prompt, new tokens (greedy)
+SMOKE_SERVE = (12, 10, 32)             # SMOKE graphs against eager: prompt, new tokens, max_len
+SMOKE_RING_SERVE = (130, 8, 160)       # the same across a 128-slot ring's wrap (sliding-window configs)
 MOE_SITE_SIZES = ({}, {"tokens": 1024, "d": 2048, "e": 60, "top_k": 4, "d_ff": 1408})
 HBM_BYTES_PER_S = 3.35e12              # the H100 SXM sheet's memory rate
 LAUNCHER = ("--arch", "qwen2-moe-a2.7b", "--device", "cuda", "--temperature", "0")
@@ -1132,6 +1154,26 @@ def phase_ssd(torch, dev, peak, smod, launches, fault_libs, rates, built, unguar
             "sass": sass, "timings": [row], "kernel": kernel}
 
 
+def eager_rank(rank_site, site, graph_report):
+    """``rank_site`` again on the site's eager thunks (``graphs.eager_thunks``:
+    one launch per operation, the yardstick of the graph thunks that the
+    first ranking timed), in the same run; returns both routes' selected
+    variant, single-run ms and verdict."""
+    from repro_torch import graphs
+
+    with graphs.eager_thunks():
+        eager = rank_site(site)
+    out = {}
+    for route, report in (("graphs", graph_report), ("eager", eager)):
+        out[route] = {"selected": report.selected,
+                      "single_run_ms": {k_: t * 1e3 for k_, t in report.single_run_times.items()},
+                      "verdict": report.discriminant.reason if report.discriminant.is_anomaly else "valid"}
+    log(f"[routes] {site.name}: " + "; ".join(
+        f"{route} selects {r['selected']} ({r['verdict']}), single-run ms "
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in r["single_run_ms"].items()) for route, r in out.items()))
+    return out
+
+
 def phase_sites(torch, rank_site, attention_site, ssd_chunk_site):
     """Phase 10: the attention_impl and ssd_chunk sites at the reference's
     defaults, each variant held against the oracle on the site's own seed-0
@@ -1166,6 +1208,7 @@ def phase_sites(torch, rank_site, attention_site, ssd_chunk_site):
             "single_run_ms": {k_: t * 1e3 for k_, t in report.single_run_times.items()},
             "dropped": list(report.dropped), "flops": site.flops_table(),
             "verdict": report.discriminant.reason if report.discriminant.is_anomaly else "valid",
+            "routes": eager_rank(rank_site, site, report),
         }
     return out
 
@@ -1329,22 +1372,25 @@ def verdict_changes(first, second):
     return out
 
 
-def track_graphs(algorithms):
-    """Weak references to every CUDA graph the chain algorithms capture
-    from now on (``algorithms.capture`` is wrapped; the replays are not).
-    Returns the list of references and a function that undoes the wrapping."""
-    live = []
-    capture = algorithms.capture
+def track_graphs(algorithms, graphs):
+    """Weak references to every CUDA graph captured from now on by the chain
+    algorithms (``algorithms.capture``) and by the measured thunks of the
+    generalized families and the sites (``graphs.capture``); both are
+    wrapped, the replays are not. Returns the two lists of references and
+    a function that undoes the wrapping."""
+    live = {"chain": [], "thunks": []}
+    originals = {"chain": (algorithms, algorithms.capture), "thunks": (graphs, graphs.capture)}
+    for key, (mod, capture) in originals.items():
+        def tracked(fn, device, _capture=capture, _live=live[key]):
+            replay = _capture(fn, device)
+            _live.append(weakref.ref(replay))
+            return replay
 
-    def tracked(fn, device):
-        replay = capture(fn, device)
-        live.append(weakref.ref(replay))
-        return replay
-
-    algorithms.capture = tracked
+        mod.capture = tracked
 
     def undo():
-        algorithms.capture = capture
+        for mod, capture in originals.values():
+            mod.capture = capture
 
     return live, undo
 
@@ -1394,6 +1440,7 @@ def phase_census(torch, kmod, matmul_ref, launches, work, device="cuda", default
     ``work``. Returns the phase's record and the roots of the two CLI
     stores; the hand GEMM's launches in the in-process lane join
     ``launches`` as ``census[kernel_variants]``."""
+    from repro_torch import graphs
     from repro_torch.core import family, sweep
     from repro_torch.expressions import algorithms
     from repro_torch.launch.report_md import census_tables
@@ -1455,13 +1502,39 @@ def phase_census(torch, kmod, matmul_ref, launches, work, device="cuda", default
         f"{passes['kernel_lane']['cli']['anomalies']} anomalies")
     log("    " + report.strip().replace("\n", "\n    "))
 
-    # pass 2 in this process: the same specs through run_shard, fresh stores
+    # pass 2 in this process, eager: the generalized families of the default
+    # grid and the kernel lane on eager thunks (graphs.eager_thunks), the
+    # yardstick of the graph thunks that every other pass times
+    eager = {}
+    eager_specs = (("default", dataclasses.replace(
+        spec_a, families={f: g for f, g in spec_a.families.items() if f != "chain"})), ("kernel_lane", spec_b))
+    for key, spec_ in eager_specs:
+        root = work / f"{key}_eager"
+        fam_secs, undo = family_timer(sweep, family)
+        before = kmod.matmul_kernel.launches
+        t0 = time.perf_counter()
+        try:
+            with graphs.eager_thunks():
+                for shard in range(spec_.n_shards):
+                    sweep.run_shard(spec_, str(root), shard, device=device)
+        finally:
+            undo()
+        if key == "kernel_lane":
+            launches["census[kernel_variants, eager]"] = kmod.matmul_kernel.launches - before
+        sweep.write_merged(spec_, str(root))
+        eager[key] = {"records": check_store(sweep, spec_, root, f"the {key} census on eager thunks"),
+                      "seconds": time.perf_counter() - t0, "family_seconds": fam_secs}
+        log(f"[11 census] {key} on eager thunks in process: {len(eager[key]['records'])} instances in "
+            f"{eager[key]['seconds']:.1f} s; by family {by_family(eager[key]['records'], fam_secs)}")
+
+    # pass 3 in this process: the same specs through run_shard, fresh stores
+    in_process = {}
     for key, spec_, first in (("default", spec_a, rec_a1), ("kernel_lane", spec_b, rec_b1)):
         root = work / f"{key}_in_process"
         fam_secs, undo = family_timer(sweep, family)
         if key == "kernel_lane":
             reset_gemm_counts(kmod)
-        graphs_live, untrack = track_graphs(algorithms)
+        graphs_live, untrack = track_graphs(algorithms, graphs)
         allocated = torch.cuda.memory_allocated() if device == "cuda" else 0
         t0 = time.perf_counter()
         try:
@@ -1472,26 +1545,30 @@ def phase_census(torch, kmod, matmul_ref, launches, work, device="cuda", default
             untrack()
         secs = time.perf_counter() - t0
         # The graphs go with their instances: none may outlive the pass.
-        alive = sum(ref() is not None for ref in graphs_live)
+        refs = graphs_live["chain"] + graphs_live["thunks"]
+        alive = sum(ref() is not None for ref in refs)
         gc.collect()
-        alive_after_gc = sum(ref() is not None for ref in graphs_live)
-        memory = {"captured_graphs": len(graphs_live), "alive_after_pass": alive,
+        alive_after_gc = sum(ref() is not None for ref in refs)
+        memory = {"captured_graphs": {k_: len(v) for k_, v in graphs_live.items()}, "alive_after_pass": alive,
                   "alive_after_gc": alive_after_gc, "allocated_before": allocated,
                   "allocated_after": torch.cuda.memory_allocated() if device == "cuda" else 0}
         passes[key]["graphs"] = memory
-        log(f"[11 census] {key} in process: {len(graphs_live)} CUDA graphs captured, alive after the pass "
-            f"{alive}, after gc {alive_after_gc}; torch.cuda.memory_allocated() {memory['allocated_before']} "
+        log(f"[11 census] {key} in process: CUDA graphs captured {memory['captured_graphs']}, alive after the "
+            f"pass {alive}, after gc {alive_after_gc}; torch.cuda.memory_allocated() {memory['allocated_before']} "
             f"B before, {memory['allocated_after']} B after")
         if alive_after_gc:
             sys.exit(f"chip_smoke: {alive_after_gc} CUDA graphs of the {key} census outlived their instances")
-        if key == "default" and device == "cuda" and not graphs_live:
+        if key == "default" and device == "cuda" and not graphs_live["chain"]:
             sys.exit("chip_smoke: the default census's chain family captured no CUDA graph")
+        if device == "cuda" and not graphs_live["thunks"]:
+            sys.exit(f"chip_smoke: the {key} census's measured thunks captured no CUDA graph")
         if key == "kernel_lane":
             launches["census[kernel_variants]"] = kmod.matmul_kernel.launches
         sweep.write_merged(spec_, str(root))
         second = check_store(sweep, spec_, root, f"the {key} census (in process)")
         census_tables(second, name=spec_.name)
         changed = verdict_changes(first, second)
+        in_process[key] = second
         passes[key]["in_process"] = {
             "seconds": secs, "by_family": by_family(second, fam_secs),
             "anomalies": sum(r["is_anomaly"] for r in second), "instances": len(second)}
@@ -1500,12 +1577,32 @@ def phase_census(torch, kmod, matmul_ref, launches, work, device="cuda", default
         log(f"[11 census] {key} in process: {len(second)} instances in {secs:.1f} s, "
             f"{passes[key]['in_process']['anomalies']} anomalies; by family "
             f"{passes[key]['in_process']['by_family']}; verdicts that differ from the CLI pass: {len(changed)}")
+    # graphs against eager thunks: the verdicts that change, by family and size
+    for key, run in eager.items():
+        graph_recs = [r for r in in_process[key] if r["family"] != "chain"]
+        graph_secs = passes[key]["in_process"]["by_family"]
+        changed = verdict_changes(graph_recs, run["records"])
+        sizes = {r["uid"]: (r["family"], r["size"]) for r in graph_recs}
+        by_size = {}
+        for c in changed:
+            fam, size = sizes[c["uid"]]
+            by_size.setdefault(f"{fam} {size}", []).append(c)
+        passes[key]["graphs_against_eager"] = {
+            "instances": len(graph_recs), "verdict_changes": len(changed), "by_family_and_size": by_size,
+            "anomalies": {"graphs": sum(r["is_anomaly"] for r in graph_recs),
+                          "eager": sum(r["is_anomaly"] for r in run["records"])},
+            "seconds": {"graphs": {f: v.get("seconds") for f, v in graph_secs.items() if f != "chain"},
+                        "eager": dict(run["family_seconds"])}}
+        log(f"[11 census] {key}, graph thunks against eager thunks: {len(changed)} of {len(graph_recs)} verdicts "
+            f"change ({ {k_: len(v) for k_, v in by_size.items()} }); anomalies "
+            f"{passes[key]['graphs_against_eager']['anomalies']}; seconds by family "
+            f"{passes[key]['graphs_against_eager']['seconds']}")
     if not launches.get("census[kernel_variants]"):
         sys.exit("chip_smoke: the census's kernel lane launched no GEMM kernel")
     log(f"[11 census] GEMM kernel launches in the in-process kernel lane: {launches['census[kernel_variants]']}")
     out.update(passes)
     summary = {grid: {p_: {k_: v[k_] for k_ in ("instances", "anomalies", "seconds")}
-                      for p_, v in rows.items() if p_ not in ("verdict_changes", "graphs")}
+                      for p_, v in rows.items() if p_ not in ("verdict_changes", "graphs", "graphs_against_eager")}
                | {"verdict_changes": rows["verdict_changes"]["count"]} for grid, rows in passes.items()}
     log("[11 census] summary " + json.dumps(summary))
     return out, {"default": d1, "kernel_lane": d2}
@@ -1970,9 +2067,29 @@ def smoke_on_card(torch, T, cfg, dev):
             steps[where], _ = T.lm_decode_step(cfg, params, st, tokens[:, s - 1: s].to(d_), s - 1)
     err = float((out.cpu() - ref).abs().max())
     rel = float((steps["card"] - full).abs().max() / (full.abs().max() + 1e-9))
-    return {"max_abs_err": err, "share_of_tolerance": err / (SMOKE_TOL * (1 + float(ref.abs().max()))),
-            "decode_rel_err": rel, "decode_share_of_bound": rel / DECODE_REL,
-            "decode_max_abs_err_vs_cpu": float((steps["card"].cpu() - steps["cpu"]).abs().max())}
+    rec = {"max_abs_err": err, "share_of_tolerance": err / (SMOKE_TOL * (1 + float(ref.abs().max()))),
+           "decode_rel_err": rel, "decode_share_of_bound": rel / DECODE_REL,
+           "decode_max_abs_err_vs_cpu": float((steps["card"].cpu() - steps["cpu"]).abs().max())}
+    if not cfg.is_encoder_decoder:
+        rec["graph_tokens"] = smoke_graph_tokens(torch, cfg, card, dev)
+    return rec
+
+
+def smoke_graph_tokens(torch, cfg, params, dev):
+    """The serving engine's greedy tokens on CUDA graphs against its eager
+    route (``graphs=False``), one SMOKE config on the card: batch 2, a
+    12-token prompt and 10 new tokens, or, for a config with a sliding
+    window, a 130-token prompt that fills its 128-slot ring in two segments
+    and 8 new tokens written across the wrap (max_len 160). Returns the
+    record; ``equal`` is held by the caller."""
+    from repro_torch.serve import ServingEngine
+
+    s, n, max_len = SMOKE_RING_SERVE if cfg.sliding_window else SMOKE_SERVE
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, s))).to(dev)
+    out = {route: ServingEngine(cfg, params, max_len=max_len, device=dev, graphs=route == "graphs")
+           .generate(prompts, n) for route in ("graphs", "eager")}
+    return {"prompt": s, "new_tokens": n, "max_len": max_len,
+            "equal": bool(torch.equal(out["graphs"], out["eager"]))}
 
 
 def decode_weight_bytes(cfg, params, batch):
@@ -2088,10 +2205,71 @@ def serve_full_width(torch, T, engine_cls, cfg, dev, say):
         checks.stop_if_failed("phase 14, gather against dense")
         del first_moe, mp, x, x2d, gathered, dense
 
-    # serving: batch, prompt, new tokens (greedy), CUDA events around generate
+    # serving: batch, prompt, new tokens (greedy), on CUDA graphs (the
+    # engine's default on the card) and on eager launches, in this run
     b, sp, n = SERVE_SHAPE
     prompts = torch.randint(0, cfg.vocab_size, (b, sp), generator=gen, device=dev)
-    engine = engine_cls(cfg, params, max_len=sp + n + 8, device=dev)
+    weight_bytes = decode_weight_bytes(cfg, params, b)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    routes, outputs = {}, {}
+    for route in ("graphs", "eager"):
+        routes[route], outputs[route] = serve_route(torch, engine_cls, cfg, params, prompts, n, dev, route,
+                                                    bound_ms)
+        r = routes[route]
+        say(f"{route}: generate b {b}, prompt {sp}, {n} new (greedy): "
+            + " / ".join(f"{x:.1f}" for x in r["generate_ms"]) + f" ms; prefill {r['prefill_ms'][1]:.2f} ms; "
+            f"decode {r['decode_ms_per_step']:.3f} ms a step against a {bound_ms:.3f} ms weight-stream bound "
+            f"({weight_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {r['decode_share_of_bound']:.3f}); "
+            f"{r['tokens_per_s']:.1f} tokens/s end to end, {r['decode_tokens_per_s']:.1f} in decode; capture "
+            f"{r['capture_seconds']:.2f} s; peak memory {r['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
+            f"({r['peak_above_params_bytes'] / 2**30:.2f} above the weights); tokens equal across the two runs: "
+            f"{r['tokens_equal_across_runs']}; last logits {r['last_logits_share_of_tolerance']:.3f} of the bf16 "
+            f"tolerance")
+        say(f"{route}: decode step alone: host {r['step_host_ms']:.3f} ms to issue, device "
+            f"{r['step_device_ms']:.3f} ms; profiled: {r['step_profile']}")
+    (tok_g, last_g), (tok_e, last_e) = outputs["graphs"], outputs["eager"]
+    checks = Checks(torch, "the graph route's last logits against the eager route's")
+    checks.hold("last_logits", last_g, last_e, TOL["bfloat16"], f"{cfg.name} graphs against eager")
+    same = bool(torch.equal(tok_g, tok_e))
+    rec["serve"] = {
+        "batch": b, "prompt": sp, "new_tokens": n, "greedy": True, "decode_weight_bytes": weight_bytes,
+        "decode_bound_ms": bound_ms, "bound_by": "bytes", "head_f32_transient_bytes": cfg.vocab_size * cfg.d_model * 4,
+        **routes,
+        "graphs_against_eager": {"tokens_equal": same, "last_logits_max_abs_err": checks.errs["last_logits"],
+                                 "last_logits_share_of_tolerance": checks.used["last_logits"],
+                                 "decode_speedup": routes["eager"]["decode_ms_per_step"]
+                                 / routes["graphs"]["decode_ms_per_step"]},
+    }
+    say(f"graphs against eager: tokens equal {same}; last logits max_abs_err {checks.errs['last_logits']:.3e} "
+        f"({checks.used['last_logits']:.3f} of the bf16 tolerance); decode "
+        f"{rec['serve']['graphs_against_eager']['decode_speedup']:.2f}x faster on graphs")
+    checks.stop_if_failed("phase 14, graphs against eager")
+    if not same:
+        sys.exit(f"chip_smoke: {cfg.name}: the graph route's greedy tokens differ from the eager route's")
+    if not routes["graphs"]["tokens_equal_across_runs"]:
+        sys.exit(f"chip_smoke: {cfg.name}: a second graph generation gave other tokens")
+    return rec
+
+
+def serve_route(torch, engine_cls, cfg, params, prompts, n, dev, route, bound_ms):
+    """``ServingEngine.generate`` on one route (``graphs``: the decode step
+    and the prefill captured as CUDA graphs; ``eager``: ``graphs=False``):
+    the buffers and captures (timed), two generations and two prefills alone
+    (CUDA events; the two generations' last logits held to each other), then
+    the decode step alone after a fresh prefill: host ms to issue it, device
+    ms, a profiled step. Returns (record, (tokens, last logits))."""
+    b, sp = prompts.shape
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = engine_cls(cfg, params, max_len=sp + n + 8, device=dev, graphs=route == "graphs")
+    t0 = time.perf_counter()
+    slot = engine.slot(b)
+    prompt_buf, prefill = engine.prefill(slot, sp)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
 
     def timed(n_new):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2104,59 +2282,44 @@ def serve_full_width(torch, T, engine_cls, cfg, dev, say):
         return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3, engine.last_logits.clone()
 
     runs = [timed(n), timed(n)]
-    prefill = [timed(1), timed(1)]
+    prefill_runs = [timed(1), timed(1)]
     (out_a, ms_a, _, last_a), (out_b, ms_b, wall_b, last_b) = runs
     checks = Checks(torch, "two generations' last logits")
-    checks.hold("last_logits", last_b, last_a, TOL["bfloat16"], f"{cfg.name} generate twice")
-    checks.stop_if_failed("phase 14, generate twice")
+    checks.hold("last_logits", last_b, last_a, TOL["bfloat16"], f"{cfg.name} {route}: generate twice")
+    checks.stop_if_failed(f"phase 14, {route}: generate twice")
     if out_b.shape != (b, sp + n) or int(out_b.min()) < 0 or int(out_b.max()) >= cfg.vocab_size:
         sys.exit(f"chip_smoke: {cfg.name} generated {tuple(out_b.shape)} tokens outside the vocabulary")
-    prefill_ms = prefill[1][1]
+    prefill_ms = prefill_runs[1][1]
     decode_ms = (ms_b - prefill_ms) / (n - 1)
-    weight_bytes = decode_weight_bytes(cfg, params, b)
-    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
 
-    # the decode step alone: host time to issue it, device time, a profiled step
-    state = T.init_lm_state(cfg, b, sp + n + 8, device=dev)
-    logits, state = engine._prefill(params, state, prompts)
-    last = logits.argmax(-1, keepdim=True)
+    # the decode step alone, after a fresh prefill (positions sp .. sp + 5)
+    prompt_buf.copy_(prompts)
+    prefill()
     host, device = [], []
     for _ in range(5):
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        engine._step(params, state, last, sp)
+        slot.decode()
         end.record()
         host.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         device.append(start.elapsed_time(end))
-    profiled = profile_step(torch, lambda: engine._step(params, state, last, sp))
-    del state, logits
-    rec["serve"] = {
-        "batch": b, "prompt": sp, "new_tokens": n, "greedy": True,
-        "generate_ms": [ms_a, ms_b], "generate_wall_ms": wall_b, "prefill_ms": [p_[1] for p_ in prefill],
+    profiled = profile_step(torch, slot.decode, top=8 if route == "graphs" else 0)
+    rec = {
+        "capture_seconds": capture_s if route == "graphs" else 0.0,
+        "generate_ms": [ms_a, ms_b], "generate_wall_ms": wall_b, "prefill_ms": [p_[1] for p_ in prefill_runs],
         "decode_ms_per_step": decode_ms, "tokens_per_s": b * n / (ms_b / 1e3),
-        "decode_tokens_per_s": b / (decode_ms / 1e3),
-        "decode_weight_bytes": weight_bytes, "decode_bound_ms": bound_ms, "bound_by": "bytes",
-        "decode_share_of_bound": bound_ms / decode_ms,
-        "head_f32_transient_bytes": cfg.vocab_size * cfg.d_model * 4,
+        "decode_tokens_per_s": b / (decode_ms / 1e3), "decode_share_of_bound": bound_ms / decode_ms,
         "tokens_equal_across_runs": bool(torch.equal(out_a, out_b)),
         "last_logits_max_abs_err": checks.errs["last_logits"],
         "last_logits_share_of_tolerance": checks.used["last_logits"],
         "step_host_ms": sorted(host)[2], "step_device_ms": sorted(device)[2], "step_profile": profiled,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "peak_above_params_bytes": torch.cuda.max_memory_allocated() - base,
     }
-    r = rec["serve"]
-    say(f"generate b {b}, prompt {sp}, {n} new (greedy): {ms_a:.1f} / {ms_b:.1f} ms; prefill {prefill_ms:.2f} ms; "
-        f"decode {decode_ms:.3f} ms a step against a {bound_ms:.3f} ms weight-stream bound "
-        f"({weight_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {r['decode_share_of_bound']:.3f}); "
-        f"{r['tokens_per_s']:.1f} tokens/s end to end, {r['decode_tokens_per_s']:.1f} in decode; peak memory "
-        f"{r['max_memory_allocated_bytes'] / 2**30:.2f} GiB; tokens equal across the two runs: "
-        f"{r['tokens_equal_across_runs']}; last logits {checks.used['last_logits']:.3f} of the bf16 tolerance")
-    say(f"decode step alone: host {r['step_host_ms']:.3f} ms to issue, device {r['step_device_ms']:.3f} ms; "
-        f"profiled: {profiled}")
-    return rec
+    return rec, (out_a, last_a)
 
 
 def phase_models(torch, kmod, fmod, smod, card, device="cuda", archs=None, full_archs=FULL_ARCHS,
@@ -2190,6 +2353,11 @@ def phase_models(torch, kmod, fmod, smod, card, device="cuda", archs=None, full_
     bad = [a for a, r in out["smoke"].items() if r["share_of_tolerance"] > 1 or r["decode_share_of_bound"] >= 1]
     if bad:
         sys.exit(f"chip_smoke: SMOKE configs whose card logits or decode disagree: {bad}")
+    graph_tokens = {a: r["graph_tokens"] for a, r in out["smoke"].items() if "graph_tokens" in r}
+    say(f"SMOKE f32 serving engine, greedy tokens on CUDA graphs against eager launches: {graph_tokens}")
+    bad = [a for a, r in graph_tokens.items() if not r["equal"]]
+    if bad:
+        sys.exit(f"chip_smoke: SMOKE configs whose graph tokens differ from the eager tokens: {bad}")
     out["seconds"]["smoke"] = time.perf_counter() - t0
 
     # 2-3. full width, bf16
@@ -2212,6 +2380,7 @@ def phase_models(torch, kmod, fmod, smod, card, device="cuda", archs=None, full_
             "single_run_ms": {k_: t_ * 1e3 for k_, t_ in report.single_run_times.items()},
             "dropped": list(report.dropped), "flops": site.flops_table(),
             "verdict": report.discriminant.reason if report.discriminant.is_anomaly else "valid",
+            "routes": eager_rank(rank_site, site, report),
         }
         del site
     out["seconds"]["moe_dispatch_site"] = time.perf_counter() - t0
@@ -2807,6 +2976,10 @@ def main():
     report = rank_site(site)
     launches["autotune[matmul_blocks]"] = kmod.matmul_kernel.launches
     launches_by_copy["autotune[matmul_blocks]"] = dict(kmod.matmul_kernel.launches_by_copy)
+    reset_gemm_counts(kmod)
+    autotune_routes = eager_rank(rank_site, site, report)
+    launches["autotune[matmul_blocks, eager]"] = kmod.matmul_kernel.launches
+    launches_by_copy["autotune[matmul_blocks, eager]"] = dict(kmod.matmul_kernel.launches_by_copy)
     log("[6 autotune] " + report.summary().replace("\n", "\n    "))
     log(f"[6 autotune] GEMM kernel launches: {launches['autotune[matmul_blocks]']}")
     details["autotune"] = {
@@ -2815,6 +2988,7 @@ def main():
         "single_run_ms": {k: v * 1e3 for k, v in report.single_run_times.items()},
         "dropped": list(report.dropped),
         "verdict": report.discriminant.reason if report.discriminant.is_anomaly else "valid",
+        "routes": autotune_routes,
     }
     if launches["autotune[matmul_blocks]"] == 0:
         sys.exit("chip_smoke: the autotune path launched no GEMM kernel")
@@ -2888,6 +3062,7 @@ def main():
     details["census"]["seconds"] = time.perf_counter() - t_census
     mark("11 census")
     gemm_launches["census[kernel_variants]"] = launches["census[kernel_variants]"]
+    gemm_launches["census[kernel_variants, eager]"] = launches["census[kernel_variants, eager]"]
     launches_by_copy["census[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
     t_explain = time.perf_counter()
     details["explain"] = phase_explain(torch, kmod, launches, stores, census_work)

@@ -19,7 +19,9 @@ analytic FLOP count, so the FLOPs-discriminant test applies directly.
   equal FLOPs exactly.
 
 Like the reference's, the attention, MoE and SSD sites time the plain
-model code; none has a kernel variant.
+model code; none has a kernel variant. Each variant's timed thunk is the
+reference's jitted thunk as one CUDA graph on the card
+(:func:`~repro_torch.graphs.measured_thunk`), eager on the CPU.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from typing import Any, Callable, Dict, List, Sequence
 
 import torch
 
-from ..device import DeviceLike, block, resolve_device
+from ..device import DeviceLike, resolve_device
+from ..graphs import measured_thunk
 from ..kernels.matmul.matmul import check_tile
 from ..kernels.matmul.ops import matmul
 from ..models.attention import attention_chunked, attention_reference
@@ -69,17 +72,6 @@ class VariantSite:
         return table
 
 
-def _thunk(fn, *tensors):
-    """Run ``fn`` once (warm-up) and return a thunk that runs it and waits
-    for the result (``torch.cuda.synchronize()`` on the card)."""
-    block(fn(*tensors))
-
-    def run():
-        return block(fn(*tensors))
-
-    return run
-
-
 # ------------------------------------------------------- attention site ----
 
 def attention_site(
@@ -102,13 +94,13 @@ def attention_site(
     f_chunk = f_scores
 
     def ref_grouped(q, k, v):
-        return _thunk(lambda q, k, v: attention_reference(q, k, v, gqa="grouped"), q, k, v)
+        return measured_thunk(lambda q, k, v: attention_reference(q, k, v, gqa="grouped"), q, k, v)
 
     def ref_broadcast(q, k, v):
-        return _thunk(lambda q, k, v: attention_reference(q, k, v, gqa="broadcast"), q, k, v)
+        return measured_thunk(lambda q, k, v: attention_reference(q, k, v, gqa="broadcast"), q, k, v)
 
     def chunked(q, k, v):
-        return _thunk(
+        return measured_thunk(
             lambda q, k, v: attention_chunked(
                 q, k, v, q_block=min(256, s), kv_block=min(512, s)
             ),
@@ -152,10 +144,10 @@ def moe_dispatch_site(
     f_dense = f_expert * e + 2.0 * tokens * d * e
 
     def gather(x):
-        return _thunk(lambda x: moe_gather(cfg, params, x)[0], x)
+        return measured_thunk(lambda x: moe_gather(cfg, params, x)[0], x)
 
     def dense(x):
-        return _thunk(lambda x: moe_dense(cfg, params, x)[0], x)
+        return measured_thunk(lambda x: moe_dense(cfg, params, x)[0], x)
 
     return VariantSite(
         name=f"moe_dispatch[T{tokens} E{e} k{top_k}]",
@@ -188,7 +180,7 @@ def ssd_chunk_site(
 
     def make(chunk):
         def build(x, dt, a_log, bm, cm):
-            return _thunk(
+            return measured_thunk(
                 lambda x, dt, a_log, bm, cm: ssd_chunked(x, dt, a_log, bm, cm, chunk)[0],
                 x, dt, a_log, bm, cm,
             )
@@ -231,7 +223,7 @@ def matmul_blocks_site(
 
     def make(bm, bn, bk):
         def build(a, b_):
-            return _thunk(
+            return measured_thunk(
                 lambda a, b_: matmul(a, b_, block_m=bm, block_n=bn, block_k=bk),
                 a, b_,
             )
@@ -242,7 +234,7 @@ def matmul_blocks_site(
                 {"tiles": (bm, bn, bk)})
         for bm, bn, bk in blocks
     ) + (
-        Variant("torch_matmul", f, lambda a, b_: _thunk(torch.matmul, a, b_)),
+        Variant("torch_matmul", f, lambda a, b_: measured_thunk(torch.matmul, a, b_)),
     )
     return VariantSite(
         name=f"matmul[{m}x{k}x{n}]", variants=variants, make_inputs=inputs

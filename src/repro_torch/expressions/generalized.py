@@ -21,7 +21,9 @@ callables, pluggable into the same ranking pipeline as the chains. The
 family factories, variant names and FLOP tables are the reference's
 (``repro.expressions.generalized``), unchanged. The workloads are library
 calls, as they were XLA's in the reference: ``torch.matmul`` (cuBLAS on the
-card) and ``torch.linalg`` (cuSOLVER). Inputs come from a
+card) and ``torch.linalg`` (cuSOLVER). Where the reference jits a variant's
+thunk, the port captures it as one CUDA graph on the card (eager on the
+CPU). Inputs come from a
 ``torch.Generator`` on the workload's device with the reference's scalings,
 so their numbers differ from ``jax.random``'s; to run both packages on the
 same bytes, make the inputs with numpy and pass them to
@@ -40,7 +42,8 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, block, resolve_device
+from ..device import DeviceLike, resolve_device
+from ..graphs import measured_thunk
 from .algorithms import inputs_from_reference
 
 
@@ -83,16 +86,18 @@ class ExpressionFamily:
         return table
 
 
-def _thunk(fn: Callable[..., torch.Tensor], *tensors: torch.Tensor) -> Callable[[], torch.Tensor]:
-    """Run ``fn`` once (library set-up stays outside the timed region, as
-    the reference's compile does) and return a thunk that runs it and waits
-    for the result."""
-    block(fn(*tensors))
-
-    def run() -> torch.Tensor:
-        return block(fn(*tensors))
-
-    return run
+def _checked_thunk(fn: Callable[..., Tuple[torch.Tensor, torch.Tensor]],
+                   *tensors: torch.Tensor) -> Callable[[], torch.Tensor]:
+    """The measured thunk of a factorization's ``(x, info)``-returning
+    ``fn`` (the ``torch.linalg.*_ex`` calls, which make the host wait for
+    nothing, so a capture can record them). ``fn`` runs once here and its
+    ``info`` is read, outside the timed region: a non-zero ``info`` (a
+    singular or non-SPD matrix) raises ``torch.linalg.LinAlgError``, as the
+    checked calls would."""
+    _, info = fn(*tensors)
+    if bool((info != 0).any()):
+        raise torch.linalg.LinAlgError(f"the factorization failed: info {info.tolist()}")
+    return measured_thunk(lambda *t: fn(*t)[0], *tensors)
 
 
 def _normal(gen: torch.Generator, shape: Tuple[int, ...], dev: torch.device) -> torch.Tensor:
@@ -112,17 +117,17 @@ def gram_family(n: int, k: int) -> ExpressionFamily:
         return [a, b]
 
     def left_first(a, b):
-        return _thunk(lambda a, b: (a @ a.T) @ b, a, b)
+        return measured_thunk(lambda a, b: (a @ a.T) @ b, a, b)
 
     def right_first(a, b):
-        return _thunk(lambda a, b: a @ (a.T @ b), a, b)
+        return measured_thunk(lambda a, b: a @ (a.T @ b), a, b)
 
     def left_syrk(a, b):
         # Symmetric rank-k update semantics: same math; in BLAS syrk halves
         # the FLOPs of AAᵀ. Like XLA, torch.matmul has no syrk — the
         # *analytic* count differs, which is the interesting case for the
         # discriminant test.
-        return _thunk(lambda a, b: (a @ a.T) @ b, a, b)
+        return measured_thunk(lambda a, b: (a @ a.T) @ b, a, b)
 
     # FLOP accounting at the nominal size n (scaled at measurement time the
     # ratios are invariant, which is all RF needs).
@@ -150,10 +155,10 @@ def distributive_family(n: int) -> ExpressionFamily:
         return [_normal(gen, (size, size), dev) / math.sqrt(size) for _ in range(3)]
 
     def factored(a, b, c):
-        return _thunk(lambda a, b, c: (a + b) @ c, a, b, c)
+        return measured_thunk(lambda a, b, c: (a + b) @ c, a, b, c)
 
     def expanded(a, b, c):
-        return _thunk(lambda a, b, c: a @ c + b @ c, a, b, c)
+        return measured_thunk(lambda a, b, c: a @ c + b @ c, a, b, c)
 
     variants = (
         ExpressionVariant("dist_factored", "(A+B)C", n * n + 2 * n**3, factored),
@@ -175,18 +180,22 @@ def solve_family(n: int) -> ExpressionFamily:
         return [a, b]
 
     def via_inverse(a, b):
-        return _thunk(lambda a, b: torch.linalg.inv(a) @ b, a, b)
+        def f(a, b):
+            inv, info = torch.linalg.inv_ex(a)
+            return inv @ b, info
+
+        return _checked_thunk(f, a, b)
 
     def via_solve(a, b):
-        return _thunk(torch.linalg.solve, a, b)
+        return _checked_thunk(torch.linalg.solve_ex, a, b)
 
     def via_cholesky(a, b):
         def f(a, b):
-            l = torch.linalg.cholesky(a)
+            l, info = torch.linalg.cholesky_ex(a)
             y = torch.linalg.solve_triangular(l, b[:, None], upper=False)
-            return torch.linalg.solve_triangular(l.T, y, upper=True)[:, 0]
+            return torch.linalg.solve_triangular(l.T, y, upper=True)[:, 0], info
 
-        return _thunk(f, a, b)
+        return _checked_thunk(f, a, b)
 
     variants = (
         ExpressionVariant("solve_inverse", "inv(A)b", 2.0 * n**3 + 2.0 * n * n, via_inverse),
@@ -209,10 +218,10 @@ def bilinear_family(n: int) -> ExpressionFamily:
         return [u, m, v]
 
     def left(u, m, v):
-        return _thunk(lambda u, m, v: (u @ m) @ v, u, m, v)
+        return measured_thunk(lambda u, m, v: (u @ m) @ v, u, m, v)
 
     def right(u, m, v):
-        return _thunk(lambda u, m, v: u @ (m @ v), u, m, v)
+        return measured_thunk(lambda u, m, v: u @ (m @ v), u, m, v)
 
     f = 2.0 * n * n + 2.0 * n
     variants = (

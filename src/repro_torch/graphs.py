@@ -1,9 +1,12 @@
 """CUDA-graph capture: the port's counterpart of one XLA executable.
 
-The reference compiles a ``jit=True`` chain algorithm into one XLA
-executable, launched as one unit. On the card the port captures the
-algorithm's launches once into a CUDA graph and replays it
-(:func:`capture`):
+The reference compiles its ``jax.jit`` sites into XLA executables, each
+launched as one unit: ``jit=True`` chain algorithms, the serving engine's
+prefill and decode steps, and the timed thunks of the generalized families
+and the autotune sites. On the card the port captures each one's launches
+once into a CUDA graph and replays it (:func:`capture`, which waits for the
+output, as a timer needs; :func:`capture_async`, which does not, as a
+generation loop needs; :func:`measured_thunk` for the timed thunks):
 
 - The function first runs eagerly on a side stream, outside the capture:
   one-time set-up (cuBLAS's workspace for that stream, the hand GEMM's
@@ -23,8 +26,10 @@ and the SSD scan are never captured: their wrappers count directly.)
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
-from typing import Callable, List
+from typing import Any, Callable, Iterator, List
 
 import torch
 
@@ -58,11 +63,11 @@ def _capture_stream(index: int) -> torch.cuda.Stream:
     return torch.cuda.Stream(device=index)
 
 
-def capture(fn: Callable[[], torch.Tensor], device: torch.device) -> Callable[[], torch.Tensor]:
+def capture_async(fn: Callable[[], Any], device: torch.device) -> Callable[[], Any]:
     """``fn``'s launches on ``device`` as one CUDA graph: warm ``fn`` up,
     capture it once and return a zero-arg callable that replays the graph
-    and waits for its output (the tensor ``fn`` returned during capture,
-    rewritten by every replay)."""
+    on the current stream and returns ``fn``'s output (what it returned
+    during capture, rewritten by every replay) without waiting for it."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     with torch.cuda.device(index):
         side = _capture_stream(index)
@@ -83,10 +88,52 @@ def capture(fn: Callable[[], torch.Tensor], device: torch.device) -> Callable[[]
             _recording.pop()
         torch.cuda.current_stream().wait_stream(side)
 
-    def replay() -> torch.Tensor:
+    def replay() -> Any:
         graph.replay()
         for bump in launches:
             bump()
-        return block(out)
+        return out
 
     return replay
+
+
+def capture(fn: Callable[[], torch.Tensor], device: torch.device) -> Callable[[], torch.Tensor]:
+    """:func:`capture_async`, whose replay waits for its output tensor."""
+    replay = capture_async(fn, device)
+
+    def run() -> torch.Tensor:
+        return block(replay())
+
+    return run
+
+
+_eager_thunks = contextvars.ContextVar("eager_thunks", default=False)
+
+
+@contextlib.contextmanager
+def eager_thunks() -> Iterator[None]:
+    """Measured thunks built inside this block run eagerly on the card too,
+    one launch per operation: the yardstick of their graphs."""
+    token = _eager_thunks.set(True)
+    try:
+        yield
+    finally:
+        _eager_thunks.reset(token)
+
+
+def measured_thunk(fn: Callable[..., torch.Tensor], *tensors: torch.Tensor) -> Callable[[], torch.Tensor]:
+    """The timed zero-arg thunk of ``fn(*tensors)``, the counterpart of the
+    reference's jitted thunk. On CUDA tensors: one CUDA graph (:func:`capture`:
+    eager warm-up, one capture, a replay that waits for the output; a capture
+    that fails raises). On CPU tensors, or inside :func:`eager_thunks`: ``fn``
+    runs once here (library set-up stays outside the timed region, as the
+    reference's compile does) and each call runs it and waits."""
+    device = tensors[0].device
+    if device.type == "cuda" and not _eager_thunks.get():
+        return capture(lambda: fn(*tensors), device)
+    block(fn(*tensors))
+
+    def run() -> torch.Tensor:
+        return block(fn(*tensors))
+
+    return run

@@ -6,8 +6,9 @@ reference's ``launch/serve.py``).
 
 The arch's SMOKE config, its weights drawn from seed 0 and its prompts from
 seed 1 on ``--device`` (``cuda`` unless asked otherwise; a missing GPU is
-refused). Two generations: the first pays the device's warm-up, the second
-is timed as steady state.
+refused). Two generations: the first pays the device's warm-up (on the
+card, the capture of the engine's CUDA graphs), the second is timed as
+steady state.
 """
 
 from __future__ import annotations

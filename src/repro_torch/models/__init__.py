@@ -38,9 +38,11 @@ from .model import (
     init_encdec_state,
     init_lm_params,
     init_lm_state,
+    lm_decode_inplace,
     lm_decode_step,
     lm_forward,
     lm_prefill,
+    lm_prefill_inplace,
 )
 from .moe import apply_moe, moe_dense, moe_gather
 
@@ -75,9 +77,11 @@ __all__ = [
     "init_lm_state",
     "init_unit",
     "init_unit_state",
+    "lm_decode_inplace",
     "lm_decode_step",
     "lm_forward",
     "lm_prefill",
+    "lm_prefill_inplace",
     "merge_vision_embeds",
     "moe_dense",
     "moe_gather",

@@ -26,7 +26,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .config import ModelConfig
-from .layers import Params, apply_rope, normal_init, ones_init, param_dtype, rms_head_norm, softcap, update_slice
+from .layers import (Params, apply_rope, normal_init, ones_init, param_dtype, rms_head_norm, softcap,
+                     update_slice, update_slice_)
 
 NEG_INF = -2.0e38  # f32-safe mask value
 
@@ -294,6 +295,21 @@ def init_kv_cache(
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def write_kv_cache(
+    cache: Dict[str, torch.Tensor],
+    k_new: torch.Tensor,          # [b, s_new, K, hd]
+    v_new: torch.Tensor,
+    position: Union[int, torch.Tensor],  # scalar write offset
+) -> Dict[str, torch.Tensor]:
+    """Write ``k_new``/``v_new`` into ``cache`` at ``position``, in place,
+    and return ``cache``. The offset is clamped so the update fits, as
+    ``lax.dynamic_update_slice`` clamps it; a tensor offset (0-d, on the
+    cache's device) is never read back to the host."""
+    update_slice_(cache["k"], k_new, position, dim=1)
+    update_slice_(cache["v"], v_new, position, dim=1)
+    return cache
+
+
 def update_kv_cache(
     cache: Dict[str, torch.Tensor],
     k_new: torch.Tensor,          # [b, s_new, K, hd]
@@ -301,11 +317,9 @@ def update_kv_cache(
     position: Union[int, torch.Tensor],  # scalar write offset
 ) -> Dict[str, torch.Tensor]:
     """A new cache with ``k_new``/``v_new`` written at ``position`` (the
-    inputs are not changed). The offset is clamped so the update fits, as
-    ``lax.dynamic_update_slice`` clamps it; a tensor offset is read to the
-    host once here."""
-    return {"k": update_slice(cache["k"], k_new, int(position), dim=1),
-            "v": update_slice(cache["v"], v_new, int(position), dim=1)}
+    reference's functional form; the inputs are not changed)."""
+    return {"k": update_slice(cache["k"], k_new, position, dim=1),
+            "v": update_slice(cache["v"], v_new, position, dim=1)}
 
 
 # ------------------------------------------------------------- dispatcher --

@@ -10,8 +10,12 @@ tree (KV caches / SSM states):
 * mode="prefill"  — full sequence, writes K/V + final SSM states into state.
 * mode="decode"   — single token, reads+updates state.
 
-Decode takes ``cache_len`` as a host integer, so a step makes no host sync
-per layer: positions, ring slots and masks are built on the device from it.
+The serving modes write into the state tree they are given, in place, and
+return it (the reference returns a new tree; ``lm_prefill`` and
+``lm_decode_step`` keep that form by copying the state first). Decode takes
+``cache_len`` as a 0-d integer tensor on the device: positions, ring slots
+and masks are built there from it and nothing is read back to the host, so
+a decode step can be captured as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from .attention import (
     init_kv_cache,
     project_out,
     project_qkv,
-    update_kv_cache,
+    write_kv_cache,
 )
 from .config import FFNKind, LayerKind, ModelConfig, SublayerSpec
 from .layers import Params, apply_mlp, apply_norm, init_mlp, init_norm
@@ -81,15 +85,15 @@ def _attn_full(
     causal: bool,
     opts,
     kv_out: Optional[Dict[str, torch.Tensor]],
-) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Full-sequence attention; optionally writes the cache (prefill)."""
+) -> torch.Tensor:
+    """Full-sequence attention; optionally writes the cache ``kv_out`` in
+    place (prefill)."""
     q, k, v = project_qkv(cfg, params, x, positions)
-    new_cache = None
     if kv_out is not None:
         s = k.shape[1]
         s_len = kv_out["k"].shape[1]
         if s_len >= s:
-            new_cache = update_kv_cache(kv_out, k, v, 0)
+            write_kv_cache(kv_out, k, v, 0)
         else:
             # Ring cache (windowed layer): keep the last s_len positions at
             # their ring slots (position p -> slot p % s_len). The block of
@@ -97,9 +101,9 @@ def _attn_full(
             start = s % s_len
             seg1 = s_len - start
             k_last, v_last = k[:, -s_len:], v[:, -s_len:]
-            new_cache = update_kv_cache(kv_out, k_last[:, :seg1], v_last[:, :seg1], start)
+            write_kv_cache(kv_out, k_last[:, :seg1], v_last[:, :seg1], start)
             if start > 0:
-                new_cache = update_kv_cache(new_cache, k_last[:, seg1:], v_last[:, seg1:], 0)
+                write_kv_cache(kv_out, k_last[:, seg1:], v_last[:, seg1:], 0)
     if opts.gqa_mode == "broadcast" and k.shape[2] != q.shape[2]:
         g = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(g, dim=2)
@@ -116,7 +120,7 @@ def _attn_full(
             window=cfg.sliding_window if local else None,
             logit_cap=cfg.attn_logit_softcap,
         )
-    return project_out(params, o), new_cache
+    return project_out(params, o)
 
 
 def _attn_decode(
@@ -124,10 +128,11 @@ def _attn_decode(
     params: Params,
     x: torch.Tensor,
     cache: Dict[str, torch.Tensor],
-    cache_len: int,
+    cache_len: torch.Tensor,         # 0-d int64 on x's device
     local: bool,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    positions = torch.arange(cache_len, cache_len + 1, device=x.device)  # new token at cache_len
+) -> torch.Tensor:
+    """One token's attention; writes its K/V into ``cache`` in place."""
+    positions = cache_len.reshape(1)  # new token at cache_len
     q, k, v = project_qkv(cfg, params, x, positions)
     s_len = cache["k"].shape[1]
     kv_positions = None
@@ -136,11 +141,11 @@ def _attn_decode(
         # holds absolute position p = cache_len - ((cache_len - i) mod S)
         # (negative => unwritten). K is RoPE'd at its absolute position
         # before the write, so only the mask needs the ring mapping.
-        cache = update_kv_cache(cache, k, v, cache_len % s_len)
+        write_kv_cache(cache, k, v, torch.remainder(cache_len, s_len))
         idx = torch.arange(s_len, device=x.device)
         kv_positions = cache_len - torch.remainder(cache_len - idx, s_len)
     else:
-        cache = update_kv_cache(cache, k, v, cache_len)
+        write_kv_cache(cache, k, v, cache_len)
     o = decode_attention(
         q,
         cache["k"],
@@ -150,7 +155,7 @@ def _attn_decode(
         logit_cap=cfg.attn_logit_softcap,
         kv_positions=kv_positions,
     )
-    return project_out(params, o), cache
+    return project_out(params, o)
 
 
 # ----------------------------------------------------------------- apply ---
@@ -164,11 +169,12 @@ def apply_sublayer(
     mode: str = "train",                 # train | prefill | decode
     positions: Optional[torch.Tensor] = None,
     state: BlockState = None,
-    cache_len: Optional[int] = None,
+    cache_len: Optional[torch.Tensor] = None,
     causal: bool = True,
     opts=None,
 ) -> Tuple[torch.Tensor, BlockState, torch.Tensor]:
-    """Returns (x, new_state_or_None, moe_aux_loss)."""
+    """Returns (x, new_state_or_None, moe_aux_loss). In the serving modes
+    the new state is ``state``, written in place."""
     if opts is None:
         from .model import ForwardOptions
 
@@ -176,19 +182,15 @@ def apply_sublayer(
     opts.check()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     local = spec.kind is LayerKind.ATTN_LOCAL
-    new_state: Dict[str, Any] = {}
 
     # ---- mixer ----
     if spec.kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
         h = apply_norm(cfg, params["attn_norm"], x)
         if mode == "decode":
-            o, kv = _attn_decode(cfg, params["attn"], h, state["kv"], cache_len, local)
-            new_state["kv"] = kv
+            o = _attn_decode(cfg, params["attn"], h, state["kv"], cache_len, local)
         else:
             kv_out = state["kv"] if mode == "prefill" else None
-            o, kv = _attn_full(cfg, params["attn"], h, positions, local, causal, opts, kv_out)
-            if mode == "prefill":
-                new_state["kv"] = kv
+            o = _attn_full(cfg, params["attn"], h, positions, local, causal, opts, kv_out)
         if cfg.post_sublayer_norm:
             o = apply_norm(cfg, params["attn_post_norm"], o)
         mixer_out: Optional[torch.Tensor] = None
@@ -207,8 +209,11 @@ def apply_sublayer(
             impl="step" if mode == "decode" else opts.mamba_impl,
         )
         if mode in ("decode", "prefill"):
-            new_state["ssm"] = ssm_state
-            new_state["conv"] = conv_state
+            # the mixer is functional (the reference's); its new SSM state
+            # and conv window are written into the state it was given
+            state["ssm"].copy_(ssm_state)
+            for name, window in conv_state.items():
+                state["conv"][name].copy_(window)
         x = x + o
         mixer_out = None
 
@@ -233,7 +238,7 @@ def apply_sublayer(
     elif cfg.parallel_block and mixer_out is not None:
         x = x + mixer_out
 
-    return x, (new_state if mode in ("decode", "prefill") else None), aux
+    return x, (state if mode in ("decode", "prefill") else None), aux
 
 
 # ----------------------------------------------------------- decode state --

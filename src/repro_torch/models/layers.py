@@ -286,12 +286,26 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 # ---------------------------------------------------------------- slices ---
 
-def update_slice(t: torch.Tensor, new: torch.Tensor, start: int, dim: int) -> torch.Tensor:
-    """A copy of ``t`` with ``new`` written from ``start`` along ``dim``; the
-    start is clamped so the update fits, as ``lax.dynamic_update_slice``
-    clamps it. ``start`` is a host integer: no device sync."""
-    size = new.shape[dim]
-    start = min(max(int(start), 0), t.shape[dim] - size)
-    out = t.clone()
-    out.narrow(dim, start, size).copy_(new.to(t.dtype))
-    return out
+def update_slice_(t: torch.Tensor, new: torch.Tensor, start: Union[int, torch.Tensor], dim: int) -> torch.Tensor:
+    """Write ``new`` into ``t`` from ``start`` along ``dim``, in place, and
+    return ``t``. As in ``lax.dynamic_update_slice``, a negative start
+    counts from the end, and the start is then clamped so the update fits:
+    a host integer on the host, a 0-d integer tensor on its own device,
+    whose value is never read back (the write goes through ``index_copy_``
+    over indices built there, so a CUDA graph can capture it)."""
+    size, extent = new.shape[dim], t.shape[dim]
+    new = new.to(t.dtype)
+    if isinstance(start, torch.Tensor):
+        start = start.to(device=t.device, dtype=torch.int64)
+        first = torch.clamp(torch.where(start < 0, start + extent, start), 0, extent - size)
+        return t.index_copy_(dim, first + torch.arange(size, device=t.device), new)
+    start = int(start)
+    start = min(max(start + extent if start < 0 else start, 0), extent - size)
+    t.narrow(dim, start, size).copy_(new)
+    return t
+
+
+def update_slice(t: torch.Tensor, new: torch.Tensor, start: Union[int, torch.Tensor], dim: int) -> torch.Tensor:
+    """A copy of ``t`` with ``new`` written from ``start`` along ``dim``
+    (:func:`update_slice_` on a clone: ``t`` is not changed)."""
+    return update_slice_(t.clone(), new, start, dim)

@@ -9,7 +9,9 @@ reference's, so weights and states carry across as tree maps.
 Public entry points (pure functions over parameter trees):
 
 * ``init_lm_params`` / ``lm_forward``        — scoring forward
-* ``init_lm_state`` / ``lm_prefill`` / ``lm_decode_step`` — serving
+* ``init_lm_state`` / ``lm_prefill`` / ``lm_decode_step`` — serving (the
+  reference's functional form, over ``lm_prefill_inplace`` /
+  ``lm_decode_inplace``, which write the stacked state in place)
 * ``init_encdec_params`` / ``encdec_forward`` / ``encdec_prefill`` /
   ``encdec_decode_step``                      — whisper-style enc-dec
 
@@ -24,7 +26,7 @@ port: this module refuses them.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
@@ -247,6 +249,53 @@ def init_lm_state(cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike
     return tree_map(lambda x: x.unsqueeze(0).repeat((cfg.n_units,) + (1,) * x.ndim), unit_state)
 
 
+def lm_prefill_inplace(
+    cfg: ModelConfig,
+    params: Params,
+    state: Dict[str, Any],
+    tokens: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,
+    opts: ForwardOptions = ForwardOptions(),
+) -> torch.Tensor:
+    """Populate the cache from a prompt (cache_len 0 at entry), writing
+    into ``state`` in place through per-layer views of its stacked leaves.
+    Returns the last token's logits [b, vocab] f32."""
+    opts.check()
+    unit = cfg.pattern_unit()
+    x = _inputs(cfg, params, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units), _unstack(state, cfg.n_units)):
+        for i, spec in enumerate(unit):
+            x, _, _ = apply_sublayer(cfg, unit_params[f"sub{i}"], spec, x, mode="prefill",
+                                     positions=positions, state=unit_state[f"sub{i}"], opts=opts)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params["embed"], params.get("lm_head"), x[:, -1:, :])
+    return logits[:, 0, :]
+
+
+def lm_decode_inplace(
+    cfg: ModelConfig,
+    params: Params,
+    state: Dict[str, Any],
+    tokens: torch.Tensor,       # [b, 1] int — the newest token
+    position: torch.Tensor,     # 0-d int64 on the device: tokens already in cache
+    opts: ForwardOptions = ForwardOptions(),
+) -> torch.Tensor:
+    """One serving step, writing into ``state`` in place; returns the logits
+    [b, vocab] f32. Nothing is read back to the host (the position stays on
+    the device), so the step can be captured as one CUDA graph."""
+    opts.check()
+    unit = cfg.pattern_unit()
+    x = embed_tokens(cfg, params["embed"], tokens)
+    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units), _unstack(state, cfg.n_units)):
+        for i, spec in enumerate(unit):
+            x, _, _ = apply_sublayer(cfg, unit_params[f"sub{i}"], spec, x, mode="decode",
+                                     state=unit_state[f"sub{i}"], cache_len=position, opts=opts)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params["embed"], params.get("lm_head"), x)
+    return logits[:, 0, :]
+
+
 def lm_prefill(
     cfg: ModelConfig,
     params: Params,
@@ -257,23 +306,11 @@ def lm_prefill(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Populate the cache from a prompt (cache_len 0 at entry).
 
-    Returns (last-token logits [b, vocab] f32, new state).
+    Returns (last-token logits [b, vocab] f32, new state); ``state`` is not
+    changed (:func:`lm_prefill_inplace` on a copy).
     """
-    opts.check()
-    unit = cfg.pattern_unit()
-    x = _inputs(cfg, params, tokens, embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
-    new_states = []
-    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units), _unstack(state, cfg.n_units)):
-        new_state = {}
-        for i, spec in enumerate(unit):
-            x, new_state[f"sub{i}"], _ = apply_sublayer(
-                cfg, unit_params[f"sub{i}"], spec, x, mode="prefill",
-                positions=positions, state=unit_state[f"sub{i}"], opts=opts)
-        new_states.append(new_state)
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = unembed(cfg, params["embed"], params.get("lm_head"), x[:, -1:, :])
-    return logits[:, 0, :], _stack(new_states)
+    state = tree_map(torch.clone, state)
+    return lm_prefill_inplace(cfg, params, state, tokens=tokens, embeds=embeds, opts=opts), state
 
 
 def lm_decode_step(
@@ -281,25 +318,14 @@ def lm_decode_step(
     params: Params,
     state: Dict[str, Any],
     tokens: torch.Tensor,       # [b, 1] int — the newest token
-    cache_len: int,             # tokens already in cache (a tensor is read to the host once)
+    cache_len: Union[int, torch.Tensor],  # tokens already in cache
     opts: ForwardOptions = ForwardOptions(),
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One serving step: returns (logits [b, vocab] f32, new state)."""
-    opts.check()
-    cache_len = int(cache_len)
-    unit = cfg.pattern_unit()
-    x = embed_tokens(cfg, params["embed"], tokens)
-    new_states = []
-    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units), _unstack(state, cfg.n_units)):
-        new_state = {}
-        for i, spec in enumerate(unit):
-            x, new_state[f"sub{i}"], _ = apply_sublayer(
-                cfg, unit_params[f"sub{i}"], spec, x, mode="decode",
-                state=unit_state[f"sub{i}"], cache_len=cache_len, opts=opts)
-        new_states.append(new_state)
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = unembed(cfg, params["embed"], params.get("lm_head"), x)
-    return logits[:, 0, :], _stack(new_states)
+    """One serving step: returns (logits [b, vocab] f32, new state);
+    ``state`` is not changed (:func:`lm_decode_inplace` on a copy)."""
+    state = tree_map(torch.clone, state)
+    position = torch.as_tensor(cache_len, dtype=torch.int64, device=tokens.device)
+    return lm_decode_inplace(cfg, params, state, tokens, position, opts=opts), state
 
 
 # ------------------------------------------------------- encoder-decoder ---

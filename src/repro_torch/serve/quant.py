@@ -54,11 +54,11 @@ def update_quant_kv_cache(
     position: Union[int, torch.Tensor],
 ) -> Dict[str, torch.Tensor]:
     """A new cache with ``k_new``/``v_new`` quantized and written at
-    ``position`` (clamped as ``lax.dynamic_update_slice`` clamps it)."""
+    ``position`` (placed as ``lax.dynamic_update_slice`` places it; a
+    tensor position is never read back to the host)."""
     kq, ks = quantize_kv(k_new)
     vq, vs = quantize_kv(v_new)
-    pos = int(position)
-    return {name: update_slice(cache[name], new, pos, dim=1)
+    return {name: update_slice(cache[name], new, position, dim=1)
             for name, new in (("k_q", kq), ("k_s", ks), ("v_q", vq), ("v_s", vs))}
 
 
