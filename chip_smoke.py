@@ -159,7 +159,24 @@ Phases (any failure exits non-zero and prints no result):
    sequence on the card (12 steps, data width 4 -> 2 before step 6) held to
    an uninterrupted run; the hand kernels' counters (recorded, expected 0);
    and ``python -m repro_torch.launch.train --steps 8 --simulate-failure 4:1``,
-   which must exit 0.
+   which must exit 0;
+16. distributed and launch planning (``repro_torch.distributed``,
+   ``launch.{compat,mesh,specs,dryrun}``, ``roofline.counts``), which
+   reaches no hand kernel: (a) on a world of one on ``nccl`` (a (1, 1)
+   ``data x model`` mesh), granite-moe-3b-a800m's SMOKE config (f32) trains
+   two steps through a plan (``make_plan``, ``tree_shardings``, every
+   sharding field of ``_sharding_opts`` set; params, state and batches
+   DTensors), whose losses must equal the unsharded steps' within
+   ``DIST_TOL``; ``compressed_psum`` must equal quantise-then-dequantise and
+   ``pipeline_apply`` over one stage the stage function, exactly; the group
+   is destroyed and the hand kernels' counters over (a) recorded (expected
+   0); (b) ``python -m repro_torch.launch.dryrun`` for granite-moe-3b-a800m
+   x train_4k on 16x16 and 2x16x16 and qwen2-moe-a2.7b x decode_32k on
+   16x16, one process after another, each on a ``fake`` process group of its
+   mesh's world size holding rank 0's shard at full width on the card:
+   every cell must end ``ok`` or ``ok_overbudget`` with measured memory and
+   FLOPs per device, the 2x16x16 cell with collective bytes; each row's
+   memory, fit attempts, counts, dominant term and seconds are printed.
 
 Each kernel's launch counter is set to 0 just before each path and read just
 after it. The next-to-last line is a JSON object with the kernels' numbers,
@@ -241,6 +258,15 @@ TRAIN_SMOKE_TOL = 1e-4                 # SMOKE f32 loss and grad norm, card agai
 ELASTIC_TOL = 1e-5                     # resumed against uninterrupted losses: tol * (1 + |loss|)
 TRAIN_LAUNCHER = ("--steps", "8", "--simulate-failure", "4:1")
 ADAMW_BYTES_PER_PARAM = 28             # read master, m, v (f32) and the grad (bf16); write them and the param
+DIST_ARCH = "granite-moe-3b-a800m"     # phase 16 (a): SMOKE, f32, through a plan on a (1, 1) mesh
+DIST_SHAPE = (4, 64)                   # its global batch, sequence
+DIST_TOL = 1e-5                        # planned against unsharded losses: tol * (1 + |loss|)
+DRYRUN_CELLS = (                       # phase 16 (b): full width, rank 0's shard
+    ("single", "granite-moe-3b-a800m", "train_4k"),
+    ("single", "qwen2-moe-a2.7b", "decode_32k"),
+    ("multi", "granite-moe-3b-a800m", "train_4k"),
+)
+DRYRUN_TIMEOUT = 600                   # seconds for one dry-run process
 TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
 
 # Planted faults in the GEMM that the 1000^3 f32 comparison at the 64^3 tile
@@ -2630,6 +2656,171 @@ def phase_train(torch, kmod, fmod, smod, card, device="cuda", full_archs=TRAIN_A
     return out
 
 
+def dist_train_on_card(torch, T, train, data, dist_mod, specs, compat, dev):
+    """Phase 16 (a), the training half: the SMOKE config's two train steps
+    unsharded and through a plan on the (1, 1) mesh (``make_plan``,
+    ``tree_shardings``, the sharding fields of ``_sharding_opts`` set), from
+    the same parameters and batches; returns both runs' losses."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+
+    cfg = get_config(DIST_ARCH, smoke=True)
+    b, s = DIST_SHAPE
+    mesh = compat.make_mesh((1, 1), ("data", "model"), dev.type)
+    plan = dist_mod.make_plan(cfg, mesh, mode="train")
+    shape = ShapeSpec("dist", s, b, "train")
+    boundary, interior, attn_q, attn_kv, q_block, gqa_mode, notes = specs._sharding_opts(
+        cfg, shape, mesh, plan, {}, training=True)
+    planned = T.ForwardOptions(attn_impl="reference", remat="full", gqa_mode=gqa_mode,
+                               boundary_sharding=boundary, interior_sharding=interior,
+                               attn_q_sharding=attn_q, attn_kv_sharding=attn_kv, attn_q_block=q_block)
+    if None in (boundary, interior, attn_q, attn_kv):
+        sys.exit(f"chip_smoke: phase 16 expected every sharding field set on (1, 1), got {planned}")
+    batches = [data.SyntheticLM(data.DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b)).global_batch(i)
+               for i in range(2)]
+    bsh = dist_mod.NamedSharding(mesh, dist_mod.batch_spec(mesh, b, 1))
+    out = {"notes": notes, "fallbacks": list(plan.fallbacks)}
+    for route in ("unsharded", "planned"):
+        params, axes = T.init_lm_params(cfg, seed=0, device=dev)
+        opts = T.ForwardOptions(attn_impl="reference", remat="full")
+        if route == "planned":
+            params = dist_mod.shard_tree(params, dist_mod.tree_shardings(plan, axes, params))
+            opts = planned
+        opt = train.AdamW(schedule=train.cosine_schedule(*TRAIN_SCHEDULE))
+        state = train.init_train_state(cfg, opt, params)
+        step = train.make_train_step(cfg, opt, opts)
+        losses = []
+        with compat.implicit_replication():
+            for batch in batches:
+                if route == "planned":
+                    batch = {k: dist_mod.shard_tensor(torch.as_tensor(v, device=dev), bsh) for k, v in batch.items()}
+                state, metrics = step(state, batch)
+                loss = metrics["loss"]
+                losses.append(float(loss.full_tensor() if hasattr(loss, "full_tensor") else loss))
+        out[route] = losses
+    out["share_of_tolerance"] = max(abs(p - u) / (DIST_TOL * (1 + abs(u)))
+                                    for p, u in zip(out["planned"], out["unsharded"]))
+    return out
+
+
+def dryrun_cells(cells, work, device="cuda", extra=(), timeout=DRYRUN_TIMEOUT):
+    """Phase 16 (b): each cell by ``python -m repro_torch.launch.dryrun`` in
+    its own process, one after another (processes sharing the card would
+    share its memory, and the fit loop would read another's use as its
+    cell's); returns {cell: (row, seconds)}."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    rows = {}
+    for mesh, arch, shape in cells:
+        out = Path(work) / f"dryrun_{mesh}_{arch}_{shape}.json".replace(":", "_")
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", mesh, "--arch", arch,
+                "--shape", shape, "--out", str(out), "--device", device, *extra]
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+        except subprocess.TimeoutExpired:
+            sys.exit(f"chip_smoke: the dry run of {(mesh, arch, shape)} did not end in {timeout} s")
+        log(run.stdout.strip())
+        if run.returncode != 0 or not out.exists():
+            log(run.stderr[-4000:])
+            sys.exit(f"chip_smoke: the dry run of {(mesh, arch, shape)} exited {run.returncode}")
+        (row,) = json.loads(out.read_text())
+        rows[(mesh, arch, shape)] = (row, time.perf_counter() - t0)
+    return rows
+
+
+def phase_distributed(torch, kmod, fmod, smod, card, device="cuda", backend="nccl", cells=DRYRUN_CELLS,
+                      dryrun_extra=()):
+    """Phase 16: distributed and launch planning (see the module docstring).
+    Returns the record; the three hand kernels' launch counters over part
+    (a) are its ``kernel_launches``, recorded (the path reaches no hand
+    kernel)."""
+    import repro_torch.data as data
+    import repro_torch.distributed as dist_mod
+    import repro_torch.launch.compat as compat
+    import repro_torch.launch.specs as specs
+    import repro_torch.models as T
+    import repro_torch.train as train
+
+    def say(msg):
+        log(f"[16 distributed] {msg} [{card}]")
+
+    dev = torch.device(device)
+    reset_gemm_counts(kmod)
+    fmod.reset_counts()
+    smod.ssd_scan_kernel.launches = 0
+    out = {"seconds": {}}
+
+    # (a) a world of one on the card's own backend
+    t0 = time.perf_counter()
+    compat.init_process_group(backend)
+    try:
+        rec = out["train"] = dist_train_on_card(torch, T, train, data, dist_mod, specs, compat, dev)
+        say(f"{DIST_ARCH} SMOKE f32, two steps on (1, 1) {backend}: planned losses {rec['planned']}, "
+            f"unsharded {rec['unsharded']} ({rec['share_of_tolerance']:.3f} of {DIST_TOL} x (1 + |loss|)); "
+            f"notes {rec['notes']}")
+        if rec["share_of_tolerance"] > 1:
+            sys.exit(f"chip_smoke: planned training on (1, 1) disagrees with the unsharded steps: {rec}")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        mesh1 = compat.make_mesh((1,), ("data",), dev.type)
+        grads = {"w": torch.randn(256, 96, device=dev, generator=gen), "b": torch.randn(96, device=dev, generator=gen)}
+        psum = dist_mod.compressed_psum(grads, "data", mesh1)
+        exact = {k: dist_mod.dequantize_int8(dist_mod.quantize_int8(g)) for k, g in grads.items()}
+        out["compressed_psum_equal"] = all(torch.equal(psum[k], exact[k]) for k in grads)
+        stage = compat.make_mesh((1,), ("stage",), dev.type)
+        w = torch.randn(1, 32, 32, device=dev, generator=gen) / math.sqrt(32)
+        bias = torch.randn(1, 32, device=dev, generator=gen) * 0.1
+        micro = torch.randn(6, 4, 32, device=dev, generator=gen)
+        stage_fn = lambda p, x: torch.tanh(x @ p["w"] + p["b"])  # noqa: E731
+        piped = dist_mod.pipeline_apply(stage_fn, {"w": w, "b": bias}, micro, stage)
+        # the stage function on each microbatch in turn (one product over all
+        # of them takes another GEMM kernel, which rounds otherwise)
+        sequential = torch.stack([stage_fn({"w": w[0], "b": bias[0]}, x) for x in micro])
+        out["pipeline_equal"] = bool(torch.equal(piped, sequential))
+        say(f"compressed_psum = quantise-then-dequantise: {out['compressed_psum_equal']}; "
+            f"pipeline_apply over one stage = the stage function: {out['pipeline_equal']}")
+        if not (out["compressed_psum_equal"] and out["pipeline_equal"]):
+            sys.exit("chip_smoke: compressed_psum or pipeline_apply disagrees on a world of one")
+    finally:
+        compat.destroy_process_group()
+    out["kernel_launches"] = {"gemm": kmod.matmul_kernel.launches,
+                              "flash_attention": fmod.flash_attention_kernel.launches,
+                              "ssd": smod.ssd_scan_kernel.launches}
+    say(f"hand-kernel launches over part (a): {out['kernel_launches']} (expected 0, 0, 0)")
+    out["seconds"]["a"] = time.perf_counter() - t0
+
+    # (b) the dry run at full width: rank 0's shard of each cell, one step
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    rows = dryrun_cells(cells, work, device=device, extra=dryrun_extra)
+    out["dryrun"] = {}
+    for (mesh, arch, shape), (row, seconds) in rows.items():
+        keep = {k: row.get(k) for k in (
+            "status", "mesh", "mem_per_dev_gb", "args_gb", "temp_gb", "hbm_budget_gb", "fit_attempts",
+            "num_microbatches", "attention_strategy", "notes", "hlo_flops_per_dev", "model_flops",
+            "collectives", "t_compute_s", "t_memory_s", "t_collective_s", "dominant", "roofline_fraction",
+            "step_s", "error")}
+        keep["seconds"] = seconds
+        out["dryrun"][f"{arch} x {shape} x {row.get('mesh')}"] = keep
+        say(f"dry run {arch} x {shape} x {row.get('mesh')}: {row['status']}, mem {row.get('mem_per_dev_gb')} GB "
+            f"(args {row.get('args_gb')}, temp {row.get('temp_gb')}, budget {row.get('hbm_budget_gb')}), "
+            f"fit attempts {row.get('fit_attempts')}, microbatches {row.get('num_microbatches')}, "
+            f"FLOPs/dev {row.get('hlo_flops_per_dev')}, collective GB {row.get('collectives')}, "
+            f"dominant {row.get('dominant')} (tc {row.get('t_compute_s')} tm {row.get('t_memory_s')} "
+            f"tx {row.get('t_collective_s')}), {seconds:.1f} s")
+        if not str(row["status"]).startswith("ok"):
+            sys.exit(f"chip_smoke: the dry run of {arch} x {shape} x {mesh} ended {row['status']}: "
+                     f"{row.get('error', '')}")
+        if device == "cuda" and row.get("mem_per_dev_gb") is None:
+            sys.exit(f"chip_smoke: the dry run of {arch} x {shape} x {mesh} measured no memory")
+        if not float(row["hlo_flops_per_dev"]) > 0:
+            sys.exit(f"chip_smoke: the dry run of {arch} x {shape} x {mesh} counted no FLOPs")
+        if mesh == "multi" and not sum(row["collectives"].values()) > 0:
+            sys.exit(f"chip_smoke: the 2x16x16 dry run of {arch} x {shape} moved no collective bytes")
+    shutil.rmtree(work)
+    out["seconds"]["b"] = time.perf_counter() - t0
+    return out
+
+
 def main():
     import torch
 
@@ -3091,7 +3282,13 @@ def main():
     details["train"]["seconds"]["phase"] = time.perf_counter() - t_train
     mark("15 train")
     log(f"[15 train] phase 15 took {details['train']['seconds']['phase']:.1f} s [{card}]")
-    for path_, phase_ in (("models[serve]", "models"), ("models[train]", "train")):
+    t_dist = time.perf_counter()
+    details["distributed"] = phase_distributed(torch, kmod, fmod, smod, card)
+    details["distributed"]["seconds"]["phase"] = time.perf_counter() - t_dist
+    mark("16 distributed")
+    log(f"[16 distributed] phase 16 took {details['distributed']['seconds']['phase']:.1f} s [{card}]")
+    for path_, phase_ in (("models[serve]", "models"), ("models[train]", "train"),
+                          ("distributed[a]", "distributed")):
         counts = details[phase_]["kernel_launches"]
         gemm_launches[path_] = launches[path_] = counts["gemm"]
         for entry in flash["kernels"]:

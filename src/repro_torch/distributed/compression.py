@@ -1,17 +1,19 @@
 """Gradient compression with error feedback (int8 / sign-SGD style), the
-collective-free half of the reference's ``distributed/compression.py``.
+reference's ``distributed/compression.py`` on ``torch.distributed``.
 
 At 1000+-node scale the cross-pod gradient all-reduce is the scaling
 bottleneck; 4x (int8) compression with error feedback keeps convergence
-(Seide et al. 2014; Karimireddy et al. 2019 — EF-SGD). Two layers here:
+(Seide et al. 2014; Karimireddy et al. 2019 — EF-SGD). Three layers:
 
 * pure quantisation ops (`quantize_int8` / `dequantize_int8`) — per-leaf
   symmetric scaling, exactly invertible modulo rounding;
 * :class:`ErrorFeedback` — carries the quantisation residual into the next
-  step so compression error does not accumulate (sum over steps telescopes).
-
-``compressed_psum``, the data-parallel sync that all-reduces int8 payloads,
-needs a process group: it comes with the distributed slice of the port.
+  step so compression error does not accumulate (sum over steps telescopes);
+* ``compressed_psum`` — a data-parallel gradient sync over one mesh
+  dimension's process group that all-reduces int8 payloads (sum of
+  dequantised shards), run on each rank's local gradients (the reference
+  runs it inside ``shard_map``; here inside :func:`repro_torch.launch.compat.shard_map`
+  or on plain per-rank tensors).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..models.layers import tree_map
 
@@ -67,10 +70,24 @@ class ErrorFeedback:
         return quantized, new_residual
 
 
-def compressed_psum(grads: Pytree, axis_name: str) -> Pytree:
-    """The reference's data-parallel sync of int8 payloads over a mesh axis;
-    it needs a process group, which the port does not set up yet."""
-    raise NotImplementedError(
-        f"compressed_psum over {axis_name!r}: collectives come with the distributed slice of the "
-        "port (distributed/); the training stack runs on one device")
+def compressed_psum(grads: Pytree, axis_name: str, mesh: Any) -> Pytree:
+    """Data-parallel sync over ``mesh``'s dimension ``axis_name``: quantise
+    locally, all-reduce, dequantise.
 
+    Payload over the wire is int8 values carried in int32 (the sum of
+    ranks' int8 payloads needs the headroom). Precision note: a sum of int8
+    payloads requires a shared scale — the max scale across the axis (one
+    f32 all-reduce of a scalar per leaf), then each rank requantises
+    against it and the int32 payloads are summed.
+    """
+    group = mesh.get_group(axis_name)
+
+    def sync(g: torch.Tensor) -> torch.Tensor:
+        scale = quantize_int8(g).scale.clone()
+        dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+        # requantise against the shared scale so the sum is coherent
+        total = torch.clamp(torch.round(g.float() / scale), -127, 127).to(torch.int8).to(torch.int32)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        return total.float() * scale
+
+    return tree_map(sync, grads)

@@ -1,9 +1,15 @@
-"""The census (DiscriminantSweep) anomaly-rate tables in the style of the
-paper's Figs. 5-7, the learned cost model's prediction-error tables and
-the AnomalyExplainer's cause tables — a copy of the census, predict and
-explain parts of the reference's ``repro.launch.report_md``. The roofline
-and perf tables of the reference's dry runs have no counterpart in the
-port."""
+"""Render the roofline tables of the port's dry-run reports and its §Perf
+iteration log (``reports/torch/``), the census (DiscriminantSweep)
+anomaly-rate tables in the style of the paper's Figs. 5-7, the learned cost
+model's prediction-error tables and the AnomalyExplainer's cause tables —
+the reference's ``repro.launch.report_md``."""
+
+import json
+import os
+import sys
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "../../.."))
+REPORT_DIR = os.path.join(ROOT, "reports", "torch")
 
 
 def _census_agg_row(label: str, a: dict) -> str:
@@ -176,3 +182,67 @@ def explain_tables(records, name: str = "explain") -> str:
                 f"{f'{100.0 * float(modes):.0f}%' if modes is not None else '—'} |"
             )
     return "\n".join(out) + "\n"
+
+
+def roofline_table(label: str) -> str:
+    path = os.path.join(REPORT_DIR, f"dryrun_{label}.json")
+    if not os.path.exists(path):
+        return f"(report {path} missing)\n"
+    rows = json.load(open(path))
+    out = [
+        "| arch | shape | T_comp (s) | T_mem (s) | T_coll (s) | dominant | "
+        "MODEL/HLO | frac | mem/dev | micro | attn |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    order = {"train_4k": 0, "prefill_32k": 1, "decode_32k": 2, "long_500k": 3}
+    rows.sort(key=lambda r: (r["arch"], order.get(r["shape"], 9)))
+    for r in rows:
+        if r["status"] == "skipped":
+            out.append(
+                f"| {r['arch']} | {r['shape']} | — | — | — | skipped | — | — | — | — | "
+                f"{r['reason'][:60]} |"
+            )
+            continue
+        if not r["status"].startswith("ok"):
+            out.append(f"| {r['arch']} | {r['shape']} | — | — | — | {r['status']} "
+                       f"| — | — | — | — | {r.get('error','')[:60]} |")
+            continue
+        flag = "" if r["status"] == "ok" else " ⚠"
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['t_compute_s']:.3f} | "
+            f"{r['t_memory_s']:.3f} | {r['t_collective_s']:.3f} | "
+            f"{r['dominant']} | {r['model_hlo_ratio']:.3f} | "
+            f"{r['roofline_fraction']:.4f} | {r['mem_per_dev_gb']:.1f}G{flag} | "
+            f"{r.get('num_microbatches', 1)} | {r.get('attention_strategy','')} |"
+        )
+    return "\n".join(out) + "\n"
+
+
+def perf_table() -> str:
+    path = os.path.join(REPORT_DIR, "perf_iterations.json")
+    if not os.path.exists(path):
+        return "(no perf iterations logged)\n"
+    rows = json.load(open(path))
+    out = [
+        "| cell | iteration | T_comp | T_mem | T_coll | mem/dev | frac (plain) | "
+        "frac (kernel) | hypothesis |",
+        "|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in rows:
+        ka = r.get("kernel_adjusted", {})
+        out.append(
+            f"| {r['arch']}/{r['shape']} | {r['label']} | {r['t_compute_s']:.2f} | "
+            f"{r['t_memory_s']:.2f} | {r['t_collective_s']:.2f} | "
+            f"{r['mem_per_dev_gb']:.1f}G | {r['roofline_fraction']:.4f} | "
+            f"{ka.get('roofline_fraction', '—')} | {r.get('hypothesis','')[:80]} |"
+        )
+    return "\n".join(out) + "\n"
+
+
+if __name__ == "__main__":
+    which = sys.argv[1] if len(sys.argv) > 1 else "single"
+    if which == "perf":
+        print(perf_table())
+    else:
+        label = "2x16x16" if which == "multi" else "16x16"
+        print(roofline_table(label))

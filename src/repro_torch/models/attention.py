@@ -26,8 +26,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .config import ModelConfig
-from .layers import (Params, apply_rope, normal_init, ones_init, param_dtype, rms_head_norm, softcap,
-                     update_slice, update_slice_)
+from .layers import (Params, apply_rope, is_dtensor, local_like, normal_init, ones_init, param_dtype,
+                     rms_head_norm, seq_shard, softcap, update_slice, update_slice_)
 
 NEG_INF = -2.0e38  # f32-safe mask value
 
@@ -66,7 +66,28 @@ def project_qkv(
 
 
 def project_out(params: Params, attn: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", attn, params["wo"].to(attn.dtype))
+    wo = params["wo"].to(attn.dtype)
+    if is_dtensor(attn):
+        return _project_out_sharded(attn, wo)
+    return torch.einsum("bshk,hkd->bsd", attn, wo)
+
+
+def _project_out_sharded(attn: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """:func:`project_out` on DTensors, each rank on its own rows and heads
+    (heads split: a partial sum over them), the output's sequence then
+    gathered. The attention core may leave the queries' sequence split
+    over a mesh axis; torch 2.11's DTensor refuses to flatten a split
+    sequence into the product's rows."""
+    from ..launch.compat import Partial, Replicate, Shard, shard_map
+
+    mesh = attn.device_mesh
+    a_pl = tuple(p if p.is_shard() and p.dim in (0, 1, 2) else Replicate() for p in attn.placements)
+    w_pl = tuple(Shard(0) if p.is_shard(2) else Replicate() for p in a_pl)
+    y_pl = tuple(Partial() if p.is_shard(2) else p for p in a_pl)
+    y = shard_map(lambda a, w: torch.einsum("bshk,hkd->bsd", a, w), mesh=mesh,
+                  in_placements=(a_pl, w_pl), out_placements=y_pl)(attn, wo)
+    whole = tuple(Replicate() if p.is_shard(1) else p for p in y_pl)
+    return y if whole == y_pl else y.redistribute(mesh, whole)
 
 
 # ------------------------------------------------------------ mask logic ---
@@ -260,6 +281,9 @@ def decode_attention(
     """One-token attention over the cache; O(S) per step. ``kv_positions``
     supports ring-buffer caches (windowed layers): slot -> absolute
     position, negative for unwritten slots."""
+    if is_dtensor(k_cache):
+        return _decode_attention_sharded(q, k_cache, v_cache, cache_len, window=window,
+                                         logit_cap=logit_cap, kv_positions=kv_positions)
     b, s, kheads, hd = k_cache.shape
     h = q.shape[2]
     g = h // kheads
@@ -281,6 +305,50 @@ def decode_attention(
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache)
     return out.reshape(b, 1, h, hd)
+
+
+def _decode_attention_sharded(q, k_cache, v_cache, cache_len, *, window, logit_cap, kv_positions):
+    """:func:`decode_attention` over DTensor caches whose sequence may be
+    sharded (the decode cells' ``cache_seq_spec``): each rank scores the
+    query against its own slice of the cache, and the softmax's max and
+    normaliser and the weighted values are all-reduced across the slices
+    (split-K decoding). The query is gathered to the cache's layout first;
+    the output is laid out so too, with the sequence's mesh dimensions
+    replicated."""
+    import torch.distributed as dist
+
+    from ..launch.compat import DTensor, Replicate
+
+    mesh = k_cache.device_mesh
+    dims, off, length = seq_shard(k_cache, 1)
+    groups = [mesh.get_group(i) for i in dims]
+    k, v = k_cache.to_local(), v_cache.to_local()
+    q = local_like(q, k_cache, 1)
+    b, _, kheads, hd = k.shape
+    h = q.shape[2]
+    g = h // kheads
+    dev = q.device
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(b, 1, kheads, g, hd), k).float() / math.sqrt(hd)
+    scores = softcap(scores, logit_cap)
+    kv_pos = (kv_positions.to(dev)[off:off + length] if kv_positions is not None
+              else torch.arange(off, off + length, device=dev))
+    q_pos = cache_len - 1 if isinstance(cache_len, int) else (cache_len.to(dev) - 1).reshape(-1, 1)
+    allowed = (kv_pos[None, :] <= q_pos) & (kv_pos[None, :] >= 0)
+    if window is not None:
+        allowed &= kv_pos[None, :] > q_pos - window
+    scores = scores.masked_fill(~allowed[:, None, None, None, :], NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    for grp in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=grp)
+    p = torch.exp(scores - m)
+    den = p.sum(dim=-1, keepdim=True)
+    for grp in groups:
+        dist.all_reduce(den, group=grp)
+    out = torch.einsum("bkgqs,bskd->bqkgd", (p / den).to(q.dtype), v).float()
+    for grp in groups:
+        dist.all_reduce(out, group=grp)
+    pl = tuple(Replicate() if pp.is_shard(1) else pp for pp in k_cache.placements)
+    return DTensor.from_local(out.to(q.dtype).reshape(b, 1, h, hd), mesh, pl, run_check=False)
 
 
 # --------------------------------------------------------------- KV cache --
@@ -336,20 +404,68 @@ def attention(
     kv_block: int = 1024,
 ) -> torch.Tensor:
     """Select implementation by sequence length / layer kind / config."""
+    if is_dtensor(q):
+        return _attention_sharded(cfg, q, k, v, local=local, impl=impl, q_block=q_block, kv_block=kv_block)
+    return _attention_local(cfg, q, k, v, local=local, impl=impl, q_block=q_block, kv_block=kv_block)
+
+
+def _attention_sharded(cfg, q, k, v, *, local, impl, q_block, kv_block):
+    """:func:`attention` on DTensors: the attention core is independent per
+    batch row and per head, and per query row given the whole K/V, so each
+    rank runs it on its own rows and heads — the layouts the sharding
+    constraints pin (queries sequence- or head-sharded, K/V replicated or
+    head-sharded with them). Queries sharded on the sequence take their
+    causal offset from their slice. (DTensor's einsum rules would search
+    every layout of the five-dimensional score products, which on a
+    three-axis mesh does not finish.)"""
+    from ..launch.compat import Replicate, shard_map
+
+    mesh = q.device_mesh
+    if impl == "auto":  # chosen by the whole sequence, as on one device
+        impl = "reference" if q.shape[1] <= 1024 else "chunked"
+    q_pl = tuple(p if p.is_shard() and p.dim in (0, 1, 2) else Replicate() for p in q.placements)
+    kv_pl = tuple(Replicate() if p.is_shard(1) else p for p in q_pl)
+    dims = [i for i, p in enumerate(q_pl) if p.is_shard(1)]
+    coord, idx = mesh.get_coordinate(), 0
+    for i in dims:
+        idx = idx * mesh.size(i) + coord[i]
+    q_offset = idx * (q.shape[1] // max(1, int(np.prod([mesh.size(i) for i in dims]))))
+
+    def core(q_l, k_l, v_l):
+        return _attention_local(cfg, q_l, k_l, v_l, local=local, impl=impl, q_block=q_block,
+                                kv_block=kv_block, q_offset=q_offset)
+
+    return shard_map(core, mesh=mesh, in_placements=(q_pl, kv_pl, kv_pl), out_placements=q_pl)(q, k, v)
+
+
+def _attention_local(
+    cfg: ModelConfig,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    local: bool = False,
+    impl: str = "auto",
+    q_block: int = 512,
+    kv_block: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
     window = cfg.sliding_window if local else None
     cap = cfg.attn_logit_softcap
     sq = q.shape[1]
     if impl == "auto":
         impl = "reference" if sq <= 1024 else "chunked"
     if impl == "reference":
-        return attention_reference(q, k, v, causal=True, window=window, logit_cap=cap)
+        return attention_reference(q, k, v, causal=True, window=window, logit_cap=cap, q_offset=q_offset)
     if impl == "chunked":
-        if window is not None and window + q_block < k.shape[1]:
+        # (the windowed slicing takes q and k at one offset: a query slice
+        # of a longer sequence runs the masked blocks instead)
+        if window is not None and window + q_block < k.shape[1] and q_offset == 0:
             return attention_local_chunked(
-                q, k, v, window=window, logit_cap=cap, q_block=min(q_block, sq)
+                q, k, v, window=window, logit_cap=cap, q_block=min(q_block, sq), q_offset=q_offset
             )
         return attention_chunked(
             q, k, v, causal=True, window=window, logit_cap=cap,
-            q_block=min(q_block, sq), kv_block=min(kv_block, k.shape[1]),
+            q_block=min(q_block, sq), kv_block=min(kv_block, k.shape[1]), q_offset=q_offset,
         )
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -36,7 +36,7 @@ from .attention import (
     write_kv_cache,
 )
 from .config import FFNKind, LayerKind, ModelConfig, SublayerSpec
-from .layers import Params, apply_mlp, apply_norm, init_mlp, init_norm
+from .layers import Params, apply_mlp, apply_norm, constrain, gather_dp, init_mlp, init_norm
 from .mamba2 import apply_mamba, init_mamba
 from .moe import apply_moe, init_moe
 
@@ -108,6 +108,9 @@ def _attn_full(
         g = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
+    q = constrain(q, opts.attn_q_sharding)
+    k = constrain(k, opts.attn_kv_sharding)
+    v = constrain(v, opts.attn_kv_sharding)
     qb = opts.attn_q_block
     if causal:
         o = attention(
@@ -120,7 +123,7 @@ def _attn_full(
             window=cfg.sliding_window if local else None,
             logit_cap=cfg.attn_logit_softcap,
         )
-    return project_out(params, o)
+    return project_out(params, constrain(o, opts.attn_q_sharding))
 
 
 def _attn_decode(
@@ -180,6 +183,7 @@ def apply_sublayer(
 
         opts = ForwardOptions()
     opts.check()
+    params = gather_dp(params)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     local = spec.kind is LayerKind.ATTN_LOCAL
 

@@ -151,6 +151,7 @@ def init_norm(cfg: ModelConfig, dims: int, device: torch.device) -> Params:
 
 def apply_norm(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Norm in f32, cast back to the compute dtype."""
+    params = gather_dp(params)
     xf = x.float()
     if cfg.norm_type == "layernorm":
         mean = xf.mean(dim=-1, keepdim=True)
@@ -211,7 +212,14 @@ def init_embedding(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["table"].to(compute_dtype(cfg))[tokens.long()]
+    table = gather_dp(params)["table"].to(compute_dtype(cfg))
+    if is_dtensor(table):
+        # DTensor's embedding rule keeps the token ids where they are (an
+        # index op could gather them) and looks rows up in the vocab shard
+        # each rank holds; the masked partial sum is reduced at once.
+        x = reduce_partial(F.embedding(tokens.long(), table))
+    else:
+        x = table[tokens.long()]
     if cfg.embed_scale:
         # the scale rounded to the compute dtype first, as the reference's
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
@@ -222,6 +230,7 @@ def unembed(cfg: ModelConfig, embed_params: Params, head_params: Optional[Params
             x: torch.Tensor) -> torch.Tensor:
     """Project to vocabulary logits (tied or untied head); f32 logits. The
     table is cast to f32 whole on every call, as in the reference."""
+    embed_params, head_params = gather_dp(embed_params), gather_dp(head_params)
     if cfg.tie_embeddings:
         logits = torch.einsum("...d,vd->...v", x.float(), embed_params["table"].float())
     else:
@@ -284,7 +293,109 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+# ------------------------------------------------------------- sharding ---
+
+def constrain(x: torch.Tensor, sharding: Optional[Any]) -> torch.Tensor:
+    """``x`` laid out by ``sharding`` (anything with ``mesh`` and
+    ``placements``), the reference's ``with_sharding_constraint``: a DTensor
+    is redistributed, a plain tensor is taken as the same on every rank
+    (so no data moves to shard it); None returns ``x`` untouched."""
+    if sharding is None:
+        return x
+    from ..launch.compat import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, sharding.mesh, [Replicate()] * sharding.mesh.ndim, run_check=False)
+    return x.redistribute(sharding.mesh, tuple(sharding.placements))
+
+
+DP_AXES = ("pod", "data")
+
+
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a DTensor (without importing the distributed stack
+    for a plain tensor)."""
+    return type(x).__name__ == "DTensor"
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its pending partial reductions done (all-reduced to
+    replicated); anything else as it is."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from ..launch.compat import Replicate
+
+    return x.redistribute(x.device_mesh, tuple(Replicate() if p.is_partial() else p for p in x.placements))
+
+
+def gather_dp(tree: Any) -> Any:
+    """ZeRO-3 gather at use: every DTensor leaf of ``tree`` with its
+    data-parallel mesh dimensions (``pod``, ``data``) replicated and its
+    other placements kept (its gradient is reduce-scattered back). Plain
+    tensors pass untouched, so a one-device forward is unchanged."""
+    def leaf(x):
+        if not is_dtensor(x):
+            return x
+        from ..launch.compat import Replicate
+
+        names = x.device_mesh.mesh_dim_names or ()
+        pl = tuple(Replicate() if n in DP_AXES and p.is_shard() else p for n, p in zip(names, x.placements))
+        return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+    return tree_map(leaf, tree)
+
+
 # ---------------------------------------------------------------- slices ---
+
+def seq_shard(t: torch.Tensor, dim: int) -> Tuple[list, int, int]:
+    """Where a DTensor's dimension ``dim`` is split: (the mesh dimensions
+    that shard it, in mesh order; this rank's offset into it; its local
+    length)."""
+    mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
+    dims = [i for i, p in enumerate(t.placements) if p.is_shard(dim)]
+    length = t.to_local().shape[dim]
+    idx = 0
+    for i in dims:  # major to minor
+        idx = idx * mesh.size(i) + coord[i]
+    return dims, idx * length, length
+
+
+def local_like(x: torch.Tensor, like: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's part of ``x`` laid out as the DTensor ``like`` but with
+    dimension ``dim`` whole (a plain ``x`` is the same on every rank)."""
+    from ..launch.compat import DTensor, Replicate
+
+    mesh = like.device_mesh
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    pl = tuple(Replicate() if p.is_shard(dim) else p for p in like.placements)
+    return x.redistribute(mesh, pl).to_local()
+
+
+def _update_slice_sharded_(t: torch.Tensor, new: torch.Tensor, start: Union[int, torch.Tensor], dim: int) -> torch.Tensor:
+    """:func:`update_slice_` into a DTensor whose ``dim`` may be sharded:
+    each rank writes the part of ``new`` that falls in its own slice (a
+    one-position write at a device start, or any write at a host start)."""
+    _, off, length = seq_shard(t, dim)
+    local = t.to_local()
+    new = local_like(new, t, dim).to(local.dtype)
+    size, extent = new.shape[dim], t.shape[dim]
+    if isinstance(start, torch.Tensor):
+        if size != 1:
+            raise NotImplementedError("a sharded write at a device start takes one position")
+        start = start.to(device=local.device, dtype=torch.int64)
+        first = torch.clamp(torch.where(start < 0, start + extent, start), 0, extent - size) - off
+        inside = (first >= 0) & (first < length)
+        idx = first.clamp(0, length - 1).reshape(1)
+        local.index_copy_(dim, idx, torch.where(inside, new, local.index_select(dim, idx)))
+        return t
+    start = int(start)
+    start = min(max(start + extent if start < 0 else start, 0), extent - size)
+    lo, hi = max(start, off), min(start + size, off + length)
+    if lo < hi:
+        local.narrow(dim, lo - off, hi - lo).copy_(new.narrow(dim, lo - start, hi - lo))
+    return t
+
 
 def update_slice_(t: torch.Tensor, new: torch.Tensor, start: Union[int, torch.Tensor], dim: int) -> torch.Tensor:
     """Write ``new`` into ``t`` from ``start`` along ``dim``, in place, and
@@ -293,6 +404,8 @@ def update_slice_(t: torch.Tensor, new: torch.Tensor, start: Union[int, torch.Te
     a host integer on the host, a 0-d integer tensor on its own device,
     whose value is never read back (the write goes through ``index_copy_``
     over indices built there, so a CUDA graph can capture it)."""
+    if is_dtensor(t):
+        return _update_slice_sharded_(t, new, start, dim)
     size, extent = new.shape[dim], t.shape[dim]
     new = new.to(t.dtype)
     if isinstance(start, torch.Tensor):

@@ -14,6 +14,7 @@ out-projection. Like the reference's model path it reaches no kernel.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -22,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import P, Params, normal_init, ones_init, param_dtype
+from .layers import P, Params, is_dtensor, normal_init, ones_init, param_dtype
 
 
 def init_mamba(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -167,6 +168,31 @@ def ssd_chunked(
     return y.to(x.dtype), state
 
 
+def _ssd_sharded(scan, x, dt, a_log, b_mat, c_mat, init_state=None):
+    """An SSD scan (:func:`ssd_chunked`, :func:`ssd_reference`) on
+    DTensors: the scan is independent per batch row and per head, so each
+    rank scans its own rows and heads (the reference's GSPMD keeps the scan
+    local; DTensor's view rules refuse its strided chunk views, and torch
+    2.11's its flattening of split batch and heads). B and C follow the
+    heads where the groups split with them, and are whole where there is
+    one group."""
+    from ..launch.compat import Replicate, Shard, shard_map
+
+    mesh, g = x.device_mesh, b_mat.shape[2]
+    x_pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in x.placements)
+    heads = [i for i, p in enumerate(x_pl) if p.is_shard(2)]
+    if g > 1 and any(g % mesh.size(i) for i in heads):
+        raise NotImplementedError(f"{g} SSM groups do not split with the heads over {heads}")
+    bc_pl = tuple(Replicate() if p.is_shard(2) and g == 1 else p for p in x_pl)
+    dt_pl = x_pl
+    a_pl = tuple(Shard(0) if p.is_shard(2) else Replicate() for p in x_pl)
+    st_pl = tuple(Shard(1) if p.is_shard(2) else p for p in x_pl)
+    fn = shard_map(lambda *a: scan(*a[:5], init_state=a[5] if len(a) > 5 else None), mesh=mesh,
+                   in_placements=(x_pl, dt_pl, a_pl, bc_pl, bc_pl) + ((st_pl,) if init_state is not None else ()),
+                   out_placements=[x_pl, st_pl])
+    return fn(x, dt, a_log, b_mat, c_mat, *(() if init_state is None else (init_state,)))
+
+
 def ssd_reference(
     x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     b_mat: torch.Tensor, c_mat: torch.Tensor,
@@ -230,9 +256,13 @@ def apply_mamba(
             chunk = max(1, min(chunk, s))
             while s % chunk != 0:
                 chunk //= 2
-        y, final_state = ssd_chunked(xh, dt, params["A_log"], bm, cm, chunk, ssm_state)
+        scan = functools.partial(ssd_chunked, chunk=chunk)
     else:
-        y, final_state = ssd_reference(xh, dt, params["A_log"], bm, cm, ssm_state)
+        scan = ssd_reference
+    if is_dtensor(xh):
+        y, final_state = _ssd_sharded(scan, xh, dt, params["A_log"], bm, cm, ssm_state)
+    else:
+        y, final_state = scan(xh, dt, params["A_log"], bm, cm, init_state=ssm_state)
 
     # skip connection D, gate, norm, out-projection
     y = y + xh.to(y.dtype) * params["D"].to(y.dtype)[None, None, :, None]

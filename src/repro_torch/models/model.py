@@ -19,8 +19,10 @@ Activation checkpointing (``ForwardOptions.remat``) wraps the unit body, as
 the reference's ``jax.checkpoint`` does: ``full`` saves nothing inside a
 unit, ``dots`` saves the outputs of its matrix products (``mm``, ``addmm``,
 ``bmm``) and ``dots_no_batch`` those without a batch dimension (``mm``,
-``addmm``). The sharding options belong to the distributed slice of the
-port: this module refuses them.
+``addmm``). The sharding options are the reference's sharding constraints
+on DTensors (:func:`.layers.constrain`, the counterpart of
+``with_sharding_constraint``): with every one ``None`` nothing is
+redistributed and a plain-tensor forward is what it was without them.
 """
 
 from __future__ import annotations
@@ -48,7 +50,9 @@ from .layers import (
     apply_mlp,
     apply_norm,
     compute_dtype,
+    constrain,
     embed_tokens,
+    gather_dp,
     init_embedding,
     init_mlp,
     init_norm,
@@ -59,9 +63,6 @@ from .layers import (
     tree_map,
     unembed,
 )
-
-_SHARDING_FIELDS = ("boundary_sharding", "interior_sharding", "attn_q_sharding",
-                    "attn_kv_sharding", "moe_compute_shardings")
 
 # remat policy -> the ops whose outputs a unit's checkpoint saves (None: none)
 _SAVED_OPS = {
@@ -80,25 +81,26 @@ class ForwardOptions(NamedTuple):
     # GQA contraction order: "grouped" keeps K/V at kv-head granularity;
     # "broadcast" repeats K/V to H query heads (equal FLOPs, more traffic).
     gqa_mode: str = "grouped"
-    # The reference's sharding constraints (the distributed slice); each
-    # must stay None here.
-    boundary_sharding: Optional[Any] = None
-    interior_sharding: Optional[Any] = None
-    attn_q_sharding: Optional[Any] = None
-    attn_kv_sharding: Optional[Any] = None
+    # Megatron-SP: the unit-loop carry (residual stream at unit boundaries)
+    # is sequence-sharded over 'model' so remat-saved activations divide by
+    # tp; the unit interior re-gathers. Each sharding is a
+    # ``distributed.NamedSharding`` (anything with ``mesh`` and
+    # ``placements``); None = let DTensor propagate.
+    boundary_sharding: Optional[Any] = None   # e.g. [b(dp), s(model), d]
+    interior_sharding: Optional[Any] = None   # e.g. [b(dp), s, d]
+    # Attention-core resharding for archs whose heads don't divide tp:
+    # sequence-shard the QUERIES over 'model' with K/V replicated.
+    attn_q_sharding: Optional[Any] = None     # [b, s, heads, hd] for q + out
+    attn_kv_sharding: Optional[Any] = None    # [b, s, kv_heads, hd] for k/v
     # kv-only chunking (q unchunked): q_block == -1
     attn_q_block: int = 0                     # 0 = impl default
+    # Compute-time expert-weight shardings: dict {wi, wg, wo} -> sharding.
     moe_compute_shardings: Optional[Any] = None
 
     def check(self) -> "ForwardOptions":
-        """``self``, or NotImplementedError for what the port does not run yet."""
+        """``self``, or ValueError for an unknown remat policy."""
         if self.remat not in REMAT_POLICIES:
             raise ValueError(f"unknown remat policy {self.remat!r}")
-        set_ = [f for f in _SHARDING_FIELDS if getattr(self, f) is not None]
-        if set_:
-            raise NotImplementedError(
-                f"{', '.join(set_)}: sharding constraints come with the distributed slice of the "
-                "port (distributed/); the model stack runs on one device")
         return self
 
 
@@ -222,18 +224,26 @@ def lm_forward(
 
     def unit_body(x, unit_params):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        # pin the checkpoint-saved input's sharding before the interior gather
+        x = constrain(x, opts.boundary_sharding)
+        x = constrain(x, opts.interior_sharding)
         for i, spec in enumerate(unit):
             x, _, a = apply_sublayer(cfg, unit_params[f"sub{i}"], spec, x, mode="train",
                                      positions=positions, opts=opts)
             aux = aux + a
-        return x, aux
+        return constrain(x, opts.boundary_sharding), aux
 
     body = _remat(unit_body, opts.remat)
+    x = constrain(x, opts.boundary_sharding)
     auxes = []
     for unit_params in _unstack(params["units"], cfg.n_units):
         x, a = body(x, unit_params)
         auxes.append(a)
     aux = torch.stack(auxes).sum()
+    # the head takes the carry gathered: a sequence still split over the
+    # mesh axis that splits the vocabulary sends DTensor's layout search
+    # through every combination of the two (minutes on a three-axis mesh)
+    x = constrain(x, opts.interior_sharding)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], params.get("lm_head"), x)
     return logits, aux
@@ -265,9 +275,11 @@ def lm_prefill_inplace(
     x = _inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units), _unstack(state, cfg.n_units)):
+        x = constrain(x, opts.interior_sharding)
         for i, spec in enumerate(unit):
             x, _, _ = apply_sublayer(cfg, unit_params[f"sub{i}"], spec, x, mode="prefill",
                                      positions=positions, state=unit_state[f"sub{i}"], opts=opts)
+        x = constrain(x, opts.boundary_sharding)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], params.get("lm_head"), x[:, -1:, :])
     return logits[:, 0, :]
@@ -375,10 +387,11 @@ def _encode(cfg: ModelConfig, params: Params, enc_embeds: torch.Tensor,
         opts.check()
     x = enc_embeds.to(compute_dtype(cfg))
     s = x.shape[1]
-    x = x + params["pos"]["enc"][:s].to(x.dtype)[None]
+    x = x + gather_dp(params["pos"])["enc"][:s].to(x.dtype)[None]
     positions = torch.arange(s, device=x.device)
 
     def enc_step(x, layer):
+        layer = gather_dp(layer)
         h = apply_norm(cfg, layer["attn_norm"], x)
         q, k, v = project_qkv(cfg, layer["attn"], h, positions)
         x = x + project_out(layer["attn"], attention_reference(q, k, v, causal=False))
@@ -418,6 +431,7 @@ def encdec_forward(
     positions = torch.arange(x.shape[1], device=x.device)
 
     def dec_step(x, layer):
+        layer = gather_dp(layer)
         h = apply_norm(cfg, layer["self_norm"], x)
         q, k, v = project_qkv(cfg, layer["self_attn"], h, positions)
         x = x + project_out(layer["self_attn"], attention_reference(q, k, v, causal=True))
@@ -457,7 +471,7 @@ def encdec_prefill(
     """Run the encoder and precompute per-layer cross K/V."""
     opts.check()
     enc_out = _encode(cfg, params, enc_embeds)
-    kvs = [_cross_kv(layer, enc_out) for layer in _unstack(params["decoder"], cfg.n_layers)]
+    kvs = [_cross_kv(gather_dp(layer), enc_out) for layer in _unstack(params["decoder"], cfg.n_layers)]
     return {**state, "cross_k": torch.stack([k for k, _ in kvs]), "cross_v": torch.stack([v for _, v in kvs])}
 
 
@@ -477,6 +491,7 @@ def encdec_decode_step(
     new_kv = []
     layers = zip(_unstack(params["decoder"], cfg.n_layers), _unstack(state["self_kv"], cfg.n_layers))
     for i, (layer, kv) in enumerate(layers):
+        layer = gather_dp(layer)
         h = apply_norm(cfg, layer["self_norm"], x)
         q, k, v = project_qkv(cfg, layer["self_attn"], h, positions)
         kv = update_kv_cache(kv, k, v, cache_len)

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import Params, gelu_tanh, normal_init, param_dtype
+from .layers import Params, constrain, gelu_tanh, is_dtensor, normal_init, param_dtype
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -113,7 +113,8 @@ def dispatch_table(cfg: ModelConfig, top_i: torch.Tensor) -> Tuple[torch.Tensor,
     return disp.view(g, e, cap + 1)[:, :, :cap], slot
 
 
-def _gather_groups(cfg: ModelConfig, params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _gather_groups(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                   experts: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based gather dispatch of every group at once: x [G, T, d] ->
     ([G, T, d], aux [G]); the shared expert is not added here.
 
@@ -121,7 +122,11 @@ def _gather_groups(cfg: ModelConfig, params: Params, x: torch.Tensor) -> Tuple[t
     each assignment's output row back from its (expert, group, slot), a zero
     row where it was dropped, and sums a token's k rows weighted: the terms
     of the reference's scatter-add into the sentinel-padded [T+1, d] buffer,
-    added in a fixed order (no atomics), so a run repeats bit for bit."""
+    added in a fixed order (no atomics), so a run repeats bit for bit.
+
+    ``experts`` = (lo, hi) runs only experts lo..hi-1 (the ones whose
+    weights ``params`` holds) and gives the others' rows zero: each rank's
+    share of an expert-parallel layer, summed across the ranks."""
     g, t, d = x.shape
     e, k, cap = cfg.n_experts, cfg.top_k, capacity(cfg, t)
     _, top_w, top_i, aux = _routing(cfg, params, x)
@@ -130,8 +135,14 @@ def _gather_groups(cfg: ModelConfig, params: Params, x: torch.Tensor) -> Tuple[t
 
     # gather: row T of each group is the zero sentinel of unfilled slots
     x_pad = torch.cat([x, x.new_zeros((g, 1, d))], dim=1).view(g * (t + 1), d)
-    rows = (disp + (groups * (t + 1))[:, None, None]).transpose(0, 1).reshape(-1)
-    ye = _expert_ffn(cfg, params, x_pad.index_select(0, rows).view(e, g * cap, d))
+    if experts is None:
+        rows = (disp + (groups * (t + 1))[:, None, None]).transpose(0, 1).reshape(-1)
+        ye = _expert_ffn(cfg, params, x_pad.index_select(0, rows).view(e, g * cap, d))
+    else:
+        lo, hi = experts
+        rows = (disp[:, lo:hi] + (groups * (t + 1))[:, None, None]).transpose(0, 1).reshape(-1)
+        ye = _expert_ffn(cfg, params, x_pad.index_select(0, rows).view(hi - lo, g * cap, d))
+        ye = torch.cat([ye.new_zeros((lo, g * cap, d)), ye, ye.new_zeros((e - hi, g * cap, d))])
 
     # combine: slot C of each (expert, group) is a zero row for dropped ones
     ye = torch.cat([ye.view(e, g, cap, d), ye.new_zeros((e, g, 1, d))], dim=2).view(-1, d)
@@ -141,10 +152,49 @@ def _gather_groups(cfg: ModelConfig, params: Params, x: torch.Tensor) -> Tuple[t
     return out.sum(dim=2), aux
 
 
+def _gather_groups_sharded(cfg: ModelConfig, params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_gather_groups` on DTensors: each rank dispatches its own
+    groups (batch rows) locally, as the reference's GSPMD keeps the
+    batch-sharded dispatch (DTensor has no sharding rule for the dispatch's
+    scatter and index ops). The expert weights come in as each rank holds
+    them after the ZeRO gather: experts split over a mesh dimension
+    (expert parallelism) or their d_ff split (tensor parallelism); either
+    way the output is a partial sum over that dimension."""
+    from ..launch.compat import Partial, Replicate, Shard, shard_map
+
+    mesh = x.device_mesh
+    w_pl = {k: tuple(params[k].placements) for k in ("wi", "wg", "wo")}
+    split = [i for i, p in enumerate(w_pl["wi"]) if not p.is_replicate()]
+    # a group's tokens whole wherever the weights are split
+    x_pl = tuple(Shard(0) if p.is_shard(0) and i not in split else Replicate()
+                 for i, p in enumerate(x.placements))
+    y_pl = tuple(Partial() if i in split else p for i, p in enumerate(x_pl))
+    # every rank of a split dimension computes the same aux loss: a partial
+    # sum of its share keeps each rank's gradient through it one share
+    aux_pl = y_pl
+    n_split = int(np.prod([mesh.size(i) for i in split]))
+    coord = mesh.get_coordinate()
+    e_split = [i for i in split if w_pl["wi"][i].is_shard(0)]
+    e_local, idx = cfg.n_experts, 0
+    for i in e_split:
+        e_local //= mesh.size(i)
+        idx = idx * mesh.size(i) + coord[i]
+    experts = (idx * e_local, (idx + 1) * e_local) if e_split else None
+
+    def local(x_l, router, wi, wg, wo):
+        y, aux = _gather_groups(cfg, {"router": router, "wi": wi, "wg": wg, "wo": wo}, x_l, experts)
+        return y, aux / n_split
+
+    rep = tuple(Replicate() for _ in x_pl)
+    fn = shard_map(local, mesh=mesh, in_placements=(x_pl, rep, w_pl["wi"], w_pl["wg"], w_pl["wo"]),
+                   out_placements=[y_pl, aux_pl])
+    return fn(x, params["router"], params["wi"], params["wg"], params["wo"])
+
+
 def moe_gather(cfg: ModelConfig, params: Params, x2d: torch.Tensor,
                shardings=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based gather dispatch. x2d [T, d] -> ([T, d], aux)."""
-    _no_shardings(shardings)
+    params = _pin(params, shardings)
     out, aux = _gather_groups(cfg, params, x2d[None])
     out = out[0]
     if cfg.n_shared_experts > 0:
@@ -155,7 +205,7 @@ def moe_gather(cfg: ModelConfig, params: Params, x2d: torch.Tensor,
 def moe_dense(cfg: ModelConfig, params: Params, x2d: torch.Tensor,
               shardings=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense dispatch: all tokens x all experts, combine by routing weight."""
-    _no_shardings(shardings)
+    params = _pin(params, shardings)
     t, d = x2d.shape
     e = cfg.n_experts
     _, top_w, top_i, aux = _routing(cfg, params, x2d)
@@ -178,11 +228,17 @@ def _shared_expert(cfg: ModelConfig, sp: Params, x: torch.Tensor) -> torch.Tenso
     return y * gate
 
 
-def _no_shardings(shardings) -> None:
-    if shardings:
-        raise NotImplementedError(
-            "MoE compute shardings belong to the distributed slice of the port; "
-            "the model stack runs on one device")
+def _pin(params: Params, shardings: Optional[dict]) -> Params:
+    """The expert weights laid out by their compute-time shardings
+    (dict wi/wg/wo -> sharding), the reference's pin of ZeRO-stored
+    weights; the params as they are when there are none."""
+    if not shardings:
+        return params
+    params = dict(params)
+    for k in ("wi", "wg", "wo"):
+        if shardings.get(k) is not None:
+            params[k] = constrain(params[k], shardings[k])
+    return params
 
 
 def apply_moe(
@@ -194,14 +250,16 @@ def apply_moe(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch per GROUP (= batch row), GShard-style: each row has its own
     capacity, as in the reference. Returns (y [b, s, d], mean aux)."""
-    _no_shardings(shardings)
+    params = _pin(params, shardings)
     b, s, d = x.shape
     if dispatch == "gather":
-        y, aux = _gather_groups(cfg, params, x)
+        y, aux = (_gather_groups_sharded if is_dtensor(x) else _gather_groups)(cfg, params, x)
         if cfg.n_shared_experts > 0:
             y = y + _shared_expert(cfg, params["shared"], x)
         return y, aux.mean()
     if dispatch == "dense":
+        if is_dtensor(x):
+            raise NotImplementedError("the dense MoE dispatch (scatter_add_) has no DTensor path; use 'gather'")
         y, aux = moe_dense(cfg, params, x.reshape(b * s, d))
         return y.reshape(b, s, d), aux
     raise ValueError(f"unknown MoE dispatch {dispatch!r}")

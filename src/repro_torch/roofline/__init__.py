@@ -1,6 +1,7 @@
 """repro_torch.roofline — the :class:`MachineSpec` registry and roofline
-terms (a copy of the reference's ``repro.roofline`` without its XLA HLO
-parser)."""
+terms. Per-device counts of an eager step, the counterpart of the
+reference's XLA HLO parser, are :mod:`.counts` (imported on its own: it
+needs torch, and this package serves host-only surfaces)."""
 
 from .terms import (
     DEFAULT_MACHINE,

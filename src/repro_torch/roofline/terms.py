@@ -20,10 +20,12 @@ BLAS-on-one-core host, and a card is described by the machine file that
 A copy of the reference's ``repro.roofline.terms``: the registry keeps the
 reference's entries and constants unchanged (explain records carry the
 machine by name and by value, so the deterministic stores stay the
-reference's byte for byte). The reference's counts come from XLA's HLO
-text (``repro.roofline.hlo``), which PyTorch does not emit; that parser is
-not part of the port, and :func:`terms_from_counts` takes any object with
-``flops``, ``bytes``, ``total_collective_bytes`` and ``collective_bytes``.
+reference's byte for byte); the card's spec for the dry run,
+:data:`H100_SXM_BF16`, is the port's own and stays out of the registry. The reference's counts come from XLA's HLO text
+(``repro.roofline.hlo``), which PyTorch does not emit; the port counts the
+ops a step runs (:mod:`.counts`), and :func:`terms_from_counts` takes any
+object with ``flops``, ``bytes``, ``total_collective_bytes`` and
+``collective_bytes``.
 """
 
 from __future__ import annotations
@@ -129,6 +131,17 @@ MACHINES: Dict[str, MachineSpec] = {
 }
 
 DEFAULT_MACHINE = MACHINES["tpu-v5e"]
+
+#: The port's card for the dry run's roofline terms: NVIDIA H100 80GB HBM3
+#: (SXM5) at its 700 W power limit, with the data sheet's rates — 989
+#: TFLOP/s dense bf16 on the tensor cores and 3.35 TB/s HBM3. The link term
+#: models one 400 Gb/s NDR InfiniBand port per card (50 GB/s): the
+#: production meshes span 32 and 64 nodes of eight cards, so every mesh
+#: axis crosses nodes. Within a node NVLink 4 moves 450 GB/s per direction,
+#: nine times more. Kept out of :data:`MACHINES`, whose names the explain
+#: and predict stores resolve (a calibrated "h100-sxm" machine file among
+#: them), so the registry stays the reference's.
+H100_SXM_BF16 = MachineSpec("h100-sxm-bf16", peak_flops=989e12, hbm_bw=3.35e12, ici_bw=50e9)
 
 #: Back-compat aliases (pre-MachineSpec callers import these).
 PEAK_FLOPS = DEFAULT_MACHINE.peak_flops

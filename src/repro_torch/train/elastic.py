@@ -15,8 +15,9 @@ On one card the mesh is a record of axis widths over the one device
 (:class:`HostMesh`): the data-parallel width is simulated, as the
 reference's single-host launcher simulates hosts as data-parallel groups,
 and every step trains on the whole global batch, which no width changes.
-Real ``DeviceMesh`` / DTensor sharding is the port's distributed slice. A
-restore first drops the live state, then reads the checkpoint into a state
+``DeviceMesh`` / DTensor sharding plans exist (``repro_torch.distributed``,
+``launch/{mesh,specs}.py``); re-meshing the trainer across processes on a
+real ``DeviceMesh`` is not ported yet. A restore first drops the live state, then reads the checkpoint into a state
 shaped on the ``meta`` device, so two full states are never held at once.
 """
 

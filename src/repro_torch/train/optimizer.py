@@ -25,7 +25,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.layers import torch_dtype, tree_leaves, tree_map
+from ..models.layers import is_dtensor, reduce_partial, torch_dtype, tree_leaves, tree_map
 
 Pytree = Any
 Schedule = Callable[[int], float]
@@ -69,6 +69,22 @@ def _chunks(*tensors: torch.Tensor):
     return zip(*(t.reshape(-1).split(CHUNK) for t in tensors))
 
 
+def _locals(p: torch.Tensor, *rest: torch.Tensor):
+    """The leaves of one parameter as plain tensors: DTensors as this
+    rank's shards (the others laid out as ``p`` first), so an elementwise
+    update works in place on each rank's own part."""
+    if not is_dtensor(p):
+        return (p,) + rest
+    pl = tuple(p.placements)
+    return (p.to_local(),) + tuple(
+        (t if tuple(t.placements) == pl else t.redistribute(p.device_mesh, pl)).to_local() for t in rest)
+
+
+def _local_value(x: torch.Tensor) -> torch.Tensor:
+    """A replicated DTensor's value as a plain tensor (anything else as it is)."""
+    return reduce_partial(x).to_local() if is_dtensor(x) else x
+
+
 def _f32_copy(p: torch.Tensor) -> torch.Tensor:
     # always a copy: with f32 params a cast would alias the working params,
     # which the in-place update would then overwrite as master
@@ -77,6 +93,11 @@ def _f32_copy(p: torch.Tensor) -> torch.Tensor:
 
 def _zeros(shape, like: torch.Tensor) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.float32, device=like.device)
+
+
+def _zeros_like(p: torch.Tensor) -> torch.Tensor:
+    """f32 zeros shaped and laid out as ``p`` (a DTensor's on its own shards)."""
+    return torch.zeros_like(p, dtype=torch.float32) if is_dtensor(p) else _zeros(p.shape, p)
 
 
 def _step_tensor(step: int) -> torch.Tensor:
@@ -115,8 +136,8 @@ class AdamW:
         return AdamWState(
             step=_step_tensor(0),
             master=tree_map(_f32_copy, params),
-            mu=tree_map(lambda p: _zeros(p.shape, p), params),
-            nu=tree_map(lambda p: _zeros(p.shape, p), params),
+            mu=tree_map(_zeros_like, params),
+            nu=tree_map(_zeros_like, params),
         )
 
     @torch.no_grad()
@@ -131,14 +152,14 @@ class AdamW:
         gnorm = global_norm(grads)
         scale = None
         if self.clip_norm is not None:
-            scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
+            scale = _local_value(torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0))
         b1, b2 = self.b1, self.b2
         bc1 = float(_f32(1.0) - _f32(b1) ** _f32(step))
         bc2 = float(_f32(1.0) - _f32(b2) ** _f32(step))
         lr = self.schedule(step)
 
         def upd(p, g, m, v):
-            for pc, gc, mc, vc in _chunks(p, g, m, v):
+            for pc, gc, mc, vc in _chunks(*_locals(p, g, m, v)):
                 gc = gc.float() if scale is None else gc.float() * scale
                 mc.mul_(b1).add_(gc * (1 - b1))
                 vc.mul_(b2).add_(gc * (1 - b2) * gc)
@@ -222,7 +243,9 @@ class Adafactor:
 
 @torch.no_grad()
 def global_norm(tree: Pytree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32 (chunk by chunk)."""
+    """sqrt of the sum of every leaf's squares, in f32 (chunk by chunk; a
+    DTensor leaf's over its shards, summed across the ranks)."""
     return torch.sqrt(sum(
-        sum(c.float().square().sum() for (c,) in _chunks(x)) for x in tree_leaves(tree)
+        x.float().square().sum() if is_dtensor(x) else sum(c.float().square().sum() for (c,) in _chunks(x))
+        for x in tree_leaves(tree)
     ))

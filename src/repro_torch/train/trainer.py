@@ -27,7 +27,7 @@ import torch
 
 from ..device import DeviceLike
 from ..models import ForwardOptions, ModelConfig, encdec_forward, lm_forward
-from ..models.layers import params_from_numpy, tree_leaves, tree_map
+from ..models.layers import is_dtensor, params_from_numpy, reduce_partial, tree_leaves, tree_map
 from .optimizer import AdafactorState, AdamW, AdamWState
 
 Pytree = Any
@@ -53,8 +53,11 @@ def cross_entropy(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     mask = (labels != loss_cfg.label_ignore).float()
     safe_labels = labels.clamp_min(0).long()
-    lse = torch.logsumexp(logits, dim=-1)                        # [b, s]
-    gold = torch.gather(logits, -1, safe_labels[..., None])[..., 0]
+    if is_dtensor(logits):
+        lse, gold = _vocab_parallel_lse_gold(logits, safe_labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)                    # [b, s]
+        gold = torch.gather(logits, -1, safe_labels[..., None])[..., 0]
     nll = (lse - gold) * mask
     denom = mask.sum().clamp_min(1.0)
     loss = nll.sum() / denom
@@ -64,6 +67,35 @@ def cross_entropy(
         loss = loss + zl
         metrics["z_loss"] = zl
     return loss, metrics
+
+
+def _vocab_parallel_lse_gold(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, gold logit) of DTensor logits [b, s, V] whose vocab may
+    be sharded: the max and the sum of exponentials reduce across the
+    vocab shards, and each rank gathers the gold logits that fall in its
+    own vocab slice (zero elsewhere), summed across them (Megatron's
+    vocab-parallel cross entropy; a gather along a sharded dimension would
+    gather the whole logits first)."""
+    from ..launch.compat import DTensor, Partial, Replicate
+
+    logits = reduce_partial(logits)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = ((logits - m).exp().sum(dim=-1)).log() + m[..., 0]
+    mesh, vdim = logits.device_mesh, logits.ndim - 1
+    vocab_dims = [i for i, p in enumerate(logits.placements) if p.is_shard(vdim)]
+    label_pl = tuple(Replicate() if i in vocab_dims else p for i, p in enumerate(logits.placements))
+    gold_pl = tuple(Partial() if i in vocab_dims else p for i, p in enumerate(logits.placements))
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    labels = labels.redistribute(mesh, label_pl).to_local()
+    local = logits.to_local()
+    width, coord, shard = local.shape[-1], mesh.get_coordinate(), 0
+    for i in vocab_dims:  # this rank's vocab slice, split major to minor
+        shard = shard * mesh.size(i) + coord[i]
+    idx = labels - shard * width
+    inside = (idx >= 0) & (idx < width)
+    gold = torch.gather(local, -1, idx.clamp(0, width - 1)[..., None])[..., 0] * inside
+    return lse, DTensor.from_local(gold, mesh, gold_pl, run_check=False)
 
 
 def make_loss_fn(
@@ -94,11 +126,35 @@ def _grads(loss_fn, params: Pytree, batch: Batch) -> Tuple[Pytree, Dict[str, tor
         p.requires_grad_(True)
     try:
         loss, metrics = loss_fn(params, batch)
+        loss = reduce_partial(loss)
         grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True))
     finally:
         for p in leaves:
             p.requires_grad_(False)
     return tree_map(lambda _: next(grads), params), {k: v.detach() for k, v in metrics.items()}
+
+
+def _f32_zeros_like(p: torch.Tensor) -> torch.Tensor:
+    """f32 zeros shaped (and, for a DTensor, laid out) as ``p``."""
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _micro(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of a batch leaf [global_b, ...]: rows
+    [i * mb, (i + 1) * mb), the reference's reshape to [n_micro, mb, ...].
+    A DTensor whose batch is sharded splits each rank's own rows instead
+    (as a data-parallel trainer does): the microbatches hold other rows,
+    and the accumulated mean over equal microbatches is the same."""
+    if not is_dtensor(v):
+        mb = v.shape[0] // n
+        return v[i * mb: (i + 1) * mb]
+    from ..launch.compat import DTensor
+
+    local = v.to_local()
+    mb = local.shape[0] // n
+    return DTensor.from_local(local[i * mb: (i + 1) * mb], v.device_mesh, v.placements, run_check=False)
 
 
 def make_train_step(
@@ -112,13 +168,10 @@ def make_train_step(
     loss_fn = make_loss_fn(cfg, opts, loss_cfg)
 
     def accumulated_grads(params, batch):
-        # batch leaves are [global_b, ...]; microbatch i takes rows
-        # [i * mb, (i + 1) * mb), the reference's reshape to [n_micro, mb, ...]
-        mb = next(iter(batch.values())).shape[0] // num_microbatches
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+        acc = tree_map(_f32_zeros_like, params)
         metrics = None
         for i in range(num_microbatches):
-            grads, m = _grads(loss_fn, params, {k: v[i * mb: (i + 1) * mb] for k, v in batch.items()})
+            grads, m = _grads(loss_fn, params, {k: _micro(v, i, num_microbatches) for k, v in batch.items()})
             tree_map(lambda a, g: a.add_(g.float()), acc, grads)
             metrics = m if metrics is None else {k: metrics[k] + m[k] for k in metrics}
         inv = 1.0 / num_microbatches
@@ -129,7 +182,7 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Batch):
         device = tree_leaves(state.params)[0].device
-        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        batch = {k: v if is_dtensor(v) else torch.as_tensor(v, device=device) for k, v in batch.items()}
         if num_microbatches > 1:
             grads, metrics = accumulated_grads(state.params, batch)
         else:

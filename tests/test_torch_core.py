@@ -222,7 +222,13 @@ def test_port_imports_with_jax_and_reference_blocked():
         "assert {'repro_torch.models.model', 'repro_torch.serve.engine', 'repro_torch.launch.serve',\n"
         "        'repro_torch.configs.qwen2_moe_a2_7b', 'repro_torch.train.trainer', 'repro_torch.train.ft',\n"
         "        'repro_torch.data.pipeline', 'repro_torch.checkpoint.manager',\n"
-        "        'repro_torch.distributed.compression'} <= set(mods), mods\n"
+        "        'repro_torch.distributed.compression', 'repro_torch.distributed.sharding',\n"
+        "        'repro_torch.distributed.pipeline', 'repro_torch.launch.compat', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.specs', 'repro_torch.launch.dryrun', 'repro_torch.launch.perf',\n"
+        "        'repro_torch.launch.reanalyze', 'repro_torch.launch.finalize_experiments',\n"
+        "        'repro_torch.roofline.counts', 'repro_torch.configs.paper_chain'} <= set(mods), mods\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "assert not [m for m, mod in sys.modules.items()"
         " if mod is not None and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "print('ok')\n"

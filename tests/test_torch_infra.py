@@ -273,8 +273,16 @@ def test_quantize_tree_and_psum_refusal():
     back = dequantize_tree(quantize_tree(tree))
     assert torch.equal(back["b"], tree["b"])
     assert float((back["a"]["w"] - tree["a"]["w"]).abs().max()) <= 1 / 127 + 1e-7
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        compressed_psum(tree, "data")
+    # compressed_psum is ported (distributed slice): over a world of one it
+    # is quantise-then-dequantise
+    from repro_torch.launch.compat import destroy_process_group, init_process_group, make_mesh
+
+    init_process_group("gloo")
+    try:
+        synced = compressed_psum(tree, "data", make_mesh((1,), ("data",), "cpu"))
+    finally:
+        destroy_process_group()
+    assert torch.equal(synced["a"]["w"], back["a"]["w"]) and torch.equal(synced["b"], back["b"])
 
 
 # -------------------------------------------------------------- optimizer --

@@ -172,10 +172,19 @@ def test_unported_options_are_refused():
         T.lm_forward(cfg, params, tokens=tokens, opts=T.ForwardOptions(remat=remat))
     with pytest.raises(ValueError, match="remat"):
         T.lm_forward(cfg, params, tokens=tokens, opts=T.ForwardOptions(remat="everything"))
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        T.lm_forward(cfg, params, tokens=tokens, opts=T.ForwardOptions(boundary_sharding="x"))
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        T.apply_moe(get_config("qwen2-moe-a2.7b", smoke=True), {}, torch.zeros(1, 1, 64), shardings={"wi": 0})
+    # the sharding fields are ported (distributed slice): accepted, and with
+    # none set (an empty or all-None MoE pin included) nothing changes
+    opts = T.ForwardOptions(boundary_sharding="x", interior_sharding="y", attn_q_sharding="q")
+    assert opts.check() is opts
+    moe_cfg = get_config("qwen2-moe-a2.7b", smoke=True)
+    moe_params, _ = T.init_lm_params(moe_cfg, seed=0, device="cpu")
+    moe = moe_params["units"]["sub0"]["moe"]
+    moe = {k: (v[0] if isinstance(v, torch.Tensor) else {kk: vv[0] for kk, vv in v.items()}) for k, v in moe.items()}
+    x = torch.randn(1, 4, moe_cfg.d_model, generator=torch.Generator().manual_seed(0))
+    plain, _ = T.apply_moe(moe_cfg, moe, x)
+    for pins in ({}, {"wi": None, "wg": None, "wo": None}):
+        pinned, _ = T.apply_moe(moe_cfg, moe, x, shardings=pins)
+        assert torch.equal(pinned, plain)
 
 
 def test_stacked_state_is_not_aliased():

@@ -150,8 +150,8 @@ def test_remat_policies_match_none(arch):
 def test_remat_option_refuses_unknown_policy_and_sharding():
     with pytest.raises(ValueError, match="remat"):
         ForwardOptions(remat="offload").check()
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        ForwardOptions(remat="full", interior_sharding="x").check()
+    # the sharding fields are ported (distributed slice): accepted
+    assert ForwardOptions(remat="full", interior_sharding="x").check().interior_sharding == "x"
     assert ForwardOptions(remat="dots").check().remat == "dots"
 
 
