@@ -176,7 +176,27 @@ Phases (any failure exits non-zero and prints no result):
    mesh's world size holding rank 0's shard at full width on the card:
    every cell must end ``ok`` or ``ok_overbudget`` with measured memory and
    FLOPs per device, the 2x16x16 cell with collective bytes; each row's
-   memory, fit attempts, counts, dominant term and seconds are printed.
+   memory, fit attempts, counts, dominant term and seconds are printed;
+17. elastic training across processes and the examples, which reach no
+   hand kernel: (a) granite-moe-3b-a800m at full width in bf16, not cut
+   (46.2 GB of AdamW state), batch 4 x 2048, ``remat="full"``, its params,
+   state and batches DTensors of the train plan on a (1, 1) ``data x model``
+   mesh over an ``ElasticGroup`` on ``nccl``: four steps through
+   ``ElasticTrainer`` with a membership event 1 -> 1 before step 2 (the
+   full-width checkpoint, the group destroyed and re-formed, the mesh
+   rebuilt, the restore onto the new shardings), then the same four steps
+   uninterrupted and one profiled step; step ms against phase 15's plain
+   step, peak memory, the checkpoint's bytes on disk, the time to recover
+   (save, re-form, restore) and the losses, held: where steps 0-1 of the two
+   runs are bit-equal, steps 2-3 within ``ELASTIC_TOL``, else within
+   ``ELASTIC_NOT_BIT_TOL``; the disk and the host's memory are checked
+   before the checkpoint is written; (b) ``python -m torch.distributed.run
+   --standalone --nproc-per-node 1 -m repro_torch.launch.train --steps 8
+   --simulate-failure 4:1`` on ``nccl``, which must exit 0, and the same
+   launcher in this process; (c) each ``examples/torch_*.py`` once in this
+   process (its own ``__main__``, flags from ``EXAMPLES``): each must end
+   without an error, and its seconds, headline lines and hand-kernel
+   launches are printed. The counters over (a) and (b) must read 0.
 
 Each kernel's launch counter is set to 0 just before each path and read just
 after it. The next-to-last line is a JSON object with the kernels' numbers,
@@ -185,10 +205,12 @@ the last is ``{"ok": true, "device": {...}}``. Details go to
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import gc
 import importlib.util
+import io
 import itertools
 import json
 import math
@@ -267,6 +289,22 @@ DRYRUN_CELLS = (                       # phase 16 (b): full width, rank 0's shar
     ("multi", "granite-moe-3b-a800m", "train_4k"),
 )
 DRYRUN_TIMEOUT = 600                   # seconds for one dry-run process
+ELASTIC_ARCH = "granite-moe-3b-a800m"  # phase 17 (a): full width, bf16, through a plan on (1, 1)
+ELASTIC_STEPS = 4                      # compared steps of each run
+ELASTIC_EVENT = {2: 1}                 # a membership event 1 -> 1 host before step 2
+ELASTIC_NOT_BIT_TOL = 1e-3             # steps 2-3 when steps 0-1 differ between the runs: tol * (1 + |loss|)
+ELASTIC_HOST_BYTES = 16e9              # host memory a streamed checkpoint needs (its largest leaf and more)
+TORCHRUN_LAUNCHER = ("--steps", "8", "--simulate-failure", "4:1")
+EXAMPLES = (                           # phase 17 (c): each example's flags ("{work}": the phase's scratch)
+    ("torch_quickstart.py",),
+    ("torch_rank_algorithms.py",),
+    ("torch_anomaly_hunt.py", "--out", "{work}/hunt"),
+    ("torch_explain_anomalies.py", "--out", "{work}/explain"),
+    ("torch_serve_lm.py",),
+    ("torch_train_lm.py", "--steps", "100", "--log-every", "20", "--ckpt-every", "1000",
+     "--ckpt-dir", "{work}/train_lm"),
+)
+EXAMPLE_HEADLINES = ("FLOPs test", "<= selected", "anomaly rate", "census:", "anomalies explained", "tok/s")
 TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
 
 # Planted faults in the GEMM that the 1000^3 f32 comparison at the 64^3 tile
@@ -2821,6 +2859,210 @@ def phase_distributed(torch, kmod, fmod, smod, card, device="cuda", backend="ncc
     return out
 
 
+def host_available_bytes():
+    """The host's ``MemAvailable`` (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def kernel_counts(kmod, fmod, smod):
+    return {"gemm": kmod.matmul_kernel.launches, "flash_attention": fmod.flash_attention_kernel.launches,
+            "ssd": smod.ssd_scan_kernel.launches}
+
+
+def reset_kernel_counts(kmod, fmod, smod):
+    reset_gemm_counts(kmod)
+    fmod.reset_counts()
+    smod.ssd_scan_kernel.launches = 0
+
+
+def elastic_run(torch, T, compat, cfg, dev, work, name, events, profiled=False):
+    """Phase 17 (a), one run: ``ElasticTrainer`` over an ``ElasticGroup`` of
+    one on a (1, 1) mesh, ``ELASTIC_STEPS`` steps with ``events``. Returns
+    the losses, each step's ms (a re-mesh's seconds taken out), the
+    recoveries, peak memory, the checkpoint's bytes on disk, and (with
+    ``profiled``) one more step under the profiler."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import AdamW, ElasticConfig, ElasticTrainer, cosine_schedule
+
+    b, s = TRAIN_SHAPE
+    events = dict(events)
+    group = compat.ElasticGroup("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = ElasticTrainer(
+            cfg, AdamW(schedule=cosine_schedule(*TRAIN_SCHEDULE)),
+            SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b)),
+            CheckpointManager(str(work / name), keep=1),
+            make_mesh_fn=lambda n: compat.make_mesh((1, 1), ("data", "model"), dev.type),
+            opts=T.ForwardOptions(attn_impl="reference", remat="full"),
+            elastic_cfg=ElasticConfig(checkpoint_every=10 ** 9), device=dev, group=group,
+            mesh_size_fn=lambda n: 1)
+        t0 = time.perf_counter()
+        trainer.start(n_hosts=1, init_params_fn=lambda: T.init_lm_params(cfg, seed=0, device=dev)[0])
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        history, step_ms = [], []
+        for _ in range(ELASTIC_STEPS):
+            n_rec = len(trainer.recoveries)
+            t0 = time.perf_counter()
+            history += trainer.run(1, membership_events=events)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            for r in trainer.recoveries[n_rec:]:
+                ms -= 1e3 * (r["save_s"] + r["reform_s"] + r["restore_s"])
+            step_ms.append(ms)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        ckpt_bytes = sum(f.stat().st_size for f in (work / name).rglob("*") if f.is_file())
+        rec = {"losses": [h["loss"] for h in history], "steps": [h["step"] for h in history],
+               "step_ms": step_ms, "step_ms_median": sorted(step_ms[1:])[len(step_ms[1:]) // 2],
+               "init_seconds": init_s, "recoveries": trainer.recoveries, "left": trainer.left,
+               "max_memory_allocated_bytes": peak_bytes, "checkpoint_bytes_on_disk": ckpt_bytes,
+               "epochs": group.epoch + 1}
+        if profiled:
+            rec["step_profile"] = profile_step(torch, lambda: trainer.run(1), top=0)
+        del trainer
+    finally:
+        group.close()
+        shutil.rmtree(work / name, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def run_example(argv, work):
+    """``examples/<argv[0]>`` run in this process as its ``__main__`` with
+    ``argv[1:]``; returns (seconds, stdout)."""
+    import runpy
+
+    path = ROOT / "examples" / argv[0]
+    old_argv, buf = sys.argv, io.StringIO()
+    sys.argv = [str(path), *(a.replace("{work}", str(work)) for a in argv[1:])]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            try:
+                runpy.run_path(str(path), run_name="__main__")
+            except SystemExit as e:
+                if e.code not in (None, 0):
+                    raise
+    finally:
+        sys.argv = old_argv
+    return time.perf_counter() - t0, buf.getvalue()
+
+
+def phase_elastic(torch, kmod, fmod, smod, card, plain_step_ms, device="cuda", arch=ELASTIC_ARCH,
+                  launcher=TORCHRUN_LAUNCHER, examples=EXAMPLES, example_args=()):
+    """Phase 17: elastic training across processes and the examples (see
+    the module docstring). Returns the record; ``kernel_launches`` are the
+    three hand kernels' counters over (a) and (b), which must read 0, and
+    ``examples[*]["kernel_launches"]`` each example's."""
+    import repro_torch.launch.compat as compat
+    import repro_torch.launch.train as launch_train
+    import repro_torch.models as T
+    from repro_torch.configs import get_config
+
+    def say(msg):
+        log(f"[17 elastic] {msg} [{card}]")
+
+    dev = torch.device(device)
+    cfg = get_config(arch)
+    out = {"seconds": {}, "arch": arch}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_"))
+    reset_kernel_counts(kmod, fmod, smod)
+
+    # (a) full width on a world of one, with and without a membership event
+    t0 = time.perf_counter()
+    n_params = T.param_counts(cfg).total
+    need = {"disk_bytes": 14 * n_params, "host_bytes": ELASTIC_HOST_BYTES}
+    have = {"disk_bytes": shutil.disk_usage(work).free, "host_bytes": host_available_bytes()}
+    out["space"] = {"need": need, "have": have}
+    say(f"{arch}: {n_params / 1e9:.3f} B parameters, a checkpoint of {need['disk_bytes'] / 1e9:.1f} GB "
+        f"(14 B a parameter); free disk {have['disk_bytes'] / 1e9:.1f} GB, host memory available "
+        f"{have['host_bytes'] / 1e9:.1f} GB")
+    if have["disk_bytes"] < 1.1 * need["disk_bytes"] or have["host_bytes"] < need["host_bytes"]:
+        sys.exit(f"chip_smoke: phase 17 cannot hold {arch}'s checkpoint here: {out['space']}")
+    elastic = out["elastic"] = elastic_run(torch, T, compat, cfg, dev, work, "elastic", ELASTIC_EVENT)
+    straight = out["uninterrupted"] = elastic_run(torch, T, compat, cfg, dev, work, "uninterrupted", {},
+                                                  profiled=True)
+    a, u = elastic["losses"], straight["losses"]
+    bit_equal_head = a[:2] == u[:2]
+    tol = ELASTIC_TOL if bit_equal_head else ELASTIC_NOT_BIT_TOL
+    out["loss_check"] = {
+        "bit_equal_steps_0_1": bit_equal_head, "tolerance": tol, "diffs": [x - y for x, y in zip(a, u)],
+        "max_share_of_tolerance": max(abs(x - y) / (tol * (1 + abs(y))) for x, y in zip(a[2:], u[2:]))}
+    for name, r in (("membership event 1 -> 1 before step 2", elastic), ("uninterrupted", straight)):
+        rec = r["recoveries"][0] if r["recoveries"] else None
+        say(f"{arch} FULL bf16 on (1, 1), {name}: losses {['%.6f' % x for x in r['losses']]}, step ms "
+            f"{['%.1f' % x for x in r['step_ms']]} (median of steps 1-3 {r['step_ms_median']:.1f}; phase 15's "
+            f"plain step {plain_step_ms:.1f}: DTensor's cost {r['step_ms_median'] / plain_step_ms - 1:+.3f}), "
+            f"peak memory {r['max_memory_allocated_bytes'] / 1e9:.2f} GB, checkpoint "
+            f"{r['checkpoint_bytes_on_disk'] / 1e9:.2f} GB on disk, group epochs {r['epochs']}"
+            + (f"; time to recover {sum(v for k, v in rec.items() if k != 'step'):.2f} s: save "
+               f"{rec['save_s']:.2f} s, re-form {rec['reform_s']:.2f} s, restore {rec['restore_s']:.2f} s"
+               if rec else ""))
+    say(f"profiled DTensor step: { {k: v for k, v in straight['step_profile'].items()} }")
+    say(f"loss check: steps 0-1 bit-equal {bit_equal_head}; differences {out['loss_check']['diffs']}; "
+        f"steps 2-3 at {out['loss_check']['max_share_of_tolerance']:.3f} of {tol} x (1 + |loss|)")
+    if (elastic["steps"] != list(range(ELASTIC_STEPS)) or len(elastic["recoveries"]) != 1 or elastic["epochs"] != 2
+            or not all(math.isfinite(x) for x in a + u) or out["loss_check"]["max_share_of_tolerance"] > 1):
+        sys.exit(f"chip_smoke: the full-width elastic run failed its checks: {out['loss_check']}, "
+                 f"steps {elastic['steps']}, recoveries {elastic['recoveries']}, epochs {elastic['epochs']}")
+    out["seconds"]["a"] = time.perf_counter() - t0
+
+    # (b) the launcher under torchrun, on the card's backend; then in this process
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argv = [*launcher, "--ckpt-dir", str(work / "torchrun"), *(("--device", "cpu") if device == "cpu" else ())]
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+                          "-m", "repro_torch.launch.train", *argv], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    out["torchrun"] = {"argv": argv, "rc": run.returncode, "stdout": run.stdout.strip(),
+                       "seconds": time.perf_counter() - t0}
+    say(f"torchrun --nproc-per-node 1 -m repro_torch.launch.train {' '.join(argv)}: exit {run.returncode} in "
+        f"{out['torchrun']['seconds']:.1f} s; " + run.stdout.strip().replace("\n", "; "))
+    if run.returncode != 0:
+        log(run.stderr[-4000:])
+        sys.exit(f"chip_smoke: the training launcher under torchrun exited {run.returncode}")
+    t1 = time.perf_counter()
+    argv[argv.index("--ckpt-dir") + 1] = str(work / "in_process")
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = launch_train.main(argv)
+    out["launcher_in_process"] = {"argv": argv, "rc": rc, "seconds": time.perf_counter() - t1,
+                                  "stdout": buf.getvalue().strip()}
+    say(f"the same launcher in this process: exit {rc} in {out['launcher_in_process']['seconds']:.1f} s; "
+        + buf.getvalue().strip().splitlines()[-1])
+    out["seconds"]["b"] = time.perf_counter() - t0
+    out["kernel_launches"] = kernel_counts(kmod, fmod, smod)
+    say(f"hand-kernel launches over (a) and (b): {out['kernel_launches']} (must be 0, 0, 0)")
+    if rc != 0 or any(out["kernel_launches"].values()):
+        sys.exit(f"chip_smoke: phase 17 (a)-(b) launched a hand kernel or the launcher failed: {out}")
+
+    # (c) the examples, each once, in this process
+    t0 = time.perf_counter()
+    out["examples"] = {}
+    for argv in examples:
+        reset_kernel_counts(kmod, fmod, smod)
+        seconds, text = run_example(tuple(argv) + tuple(example_args), work)
+        lines, table = [], False
+        for line in text.splitlines():  # the headlines, and the cause table's rows
+            table = table or "anomalies explained" in line
+            if any(h in line for h in EXAMPLE_HEADLINES) or (table and line.startswith("  ")):
+                lines.append(line.strip())
+        counts = kernel_counts(kmod, fmod, smod)
+        out["examples"][argv[0]] = {"argv": list(argv), "seconds": seconds, "headlines": lines,
+                                    "kernel_launches": counts, "stdout_tail": text[-2000:]}
+        say(f"{' '.join(argv)}: {seconds:.1f} s, hand-kernel launches {counts}; " + "; ".join(lines))
+    out["seconds"]["c"] = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main():
     import torch
 
@@ -3287,9 +3529,16 @@ def main():
     details["distributed"]["seconds"]["phase"] = time.perf_counter() - t_dist
     mark("16 distributed")
     log(f"[16 distributed] phase 16 took {details['distributed']['seconds']['phase']:.1f} s [{card}]")
-    for path_, phase_ in (("models[serve]", "models"), ("models[train]", "train"),
-                          ("distributed[a]", "distributed")):
-        counts = details[phase_]["kernel_launches"]
+    t_elastic = time.perf_counter()
+    details["elastic"] = phase_elastic(torch, kmod, fmod, smod, card,
+                                       details["train"]["full"][ELASTIC_ARCH]["step_ms_median"])
+    details["elastic"]["seconds"]["phase"] = time.perf_counter() - t_elastic
+    mark("17 elastic")
+    log(f"[17 elastic] phase 17 took {details['elastic']['seconds']['phase']:.1f} s [{card}]")
+    example_counts = [(f"examples[{k_}]", v["kernel_launches"]) for k_, v in details["elastic"]["examples"].items()]
+    for path_, counts in [(p_, details[ph]["kernel_launches"]) for p_, ph in (
+            ("models[serve]", "models"), ("models[train]", "train"), ("distributed[a]", "distributed"),
+            ("elastic[a,b]", "elastic"))] + example_counts:
         gemm_launches[path_] = launches[path_] = counts["gemm"]
         for entry in flash["kernels"]:
             entry["launches_by_path"][path_] = counts["flash_attention"]

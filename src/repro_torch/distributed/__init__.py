@@ -1,7 +1,7 @@
 """repro_torch.distributed — sharding plans, gradient compression, pipeline
 PP (the reference's ``repro.distributed`` on ``torch.distributed``
-``DeviceMesh`` and DTensor). The elastic trainer's multi-process re-mesh
-is not ported yet: ``train/elastic.py`` runs on one device."""
+``DeviceMesh`` and DTensor). ``train/elastic.py`` re-meshes across
+processes over these plans."""
 
 from .compression import (
     ErrorFeedback,

@@ -87,8 +87,11 @@ class NamedSharding:
 def placements(mesh: Any, spec: Sequence) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: one per mesh dimension,
     ``Shard(d)`` where entry ``d`` names that mesh axis, else
-    ``Replicate()``."""
+    ``Replicate()``. A mesh axis of size 1 replicates what it would split
+    (the same layout; DTensor refuses to view a dimension sharded over it,
+    such as a single KV head on a model width of 1)."""
     names = mesh_axis_names(mesh)
+    sizes = mesh_axis_sizes(mesh)
     out: List[Any] = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
         if entry is None:
@@ -98,7 +101,7 @@ def placements(mesh: Any, spec: Sequence) -> tuple:
         if idx != sorted(idx):
             raise ValueError(f"spec entry {entry} is not in the mesh's axis order {names}")
         for i in idx:
-            out[i] = Shard(d)
+            out[i] = Shard(d) if sizes[names[i]] > 1 else Replicate()
     return tuple(out)
 
 

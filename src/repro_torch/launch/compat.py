@@ -13,6 +13,10 @@ torch APIs that move between them:
 * process-group start-up for ``nccl``, ``gloo`` and the ``fake`` backend
   (a process group of any world size in one process whose collectives move
   no data: the dry run's);
+* :class:`ElasticGroup`, the default group re-formed at each membership
+  change: one rendezvous store that outlives the groups, one group per
+  membership epoch on its own ``PrefixStore``, the ranks outside a new
+  epoch's world dropping out;
 * :func:`make_mesh`, a named ``DeviceMesh`` over the default group;
 * :func:`shard_map`, the counterpart of ``jax.shard_map``: a function of
   local shards, run on each rank, with DTensors redistributed to given
@@ -26,10 +30,13 @@ Importing this module starts no process group.
 from __future__ import annotations
 
 import socket
+from datetime import timedelta
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed import PrefixStore
+from torch.distributed.rendezvous import rendezvous
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 try:  # torch >= 2.5
@@ -47,9 +54,11 @@ __all__ = [
     "BACKENDS",
     "DTensor",
     "DeviceMesh",
+    "ElasticGroup",
     "Partial",
     "Replicate",
     "Shard",
+    "barrier",
     "destroy_process_group",
     "distribute_tensor",
     "free_port",
@@ -96,6 +105,69 @@ def init_process_group(backend: str, world_size: int = 1, rank: int = 0,
 def destroy_process_group() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def barrier() -> None:
+    """Wait for every rank of the default group (``nccl`` on this rank's
+    card)."""
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+class ElasticGroup:
+    """The default process group, re-formed over the survivors at each
+    membership change.
+
+    One rendezvous (``init_method``: ``tcp://host:port``, or ``env://``
+    under ``torchrun``, whose rank and world size then come from the
+    environment) gives a store that outlives every group: rank 0 hosts it
+    (under ``torchrun``, its agent does). Membership epoch ``k`` is a group
+    on ``PrefixStore("epoch<k>/", store)``, so a new epoch never meets the
+    keys of an old one, as re-joining the same init method would. Ranks
+    keep their numbers: :meth:`reform` to ``n`` ranks keeps ranks
+    ``0 … n-1``, and the others leave (the group is destroyed on them and
+    not re-formed). A group cannot grow: a rank that left has no group."""
+
+    def __init__(self, backend: str, rank: int = -1, world_size: int = -1,
+                 init_method: Optional[str] = None, timeout: timedelta = timedelta(minutes=10)) -> None:
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"an elastic group runs on nccl or gloo, not {backend!r}")
+        if init_method is None:
+            if world_size not in (-1, 1):
+                raise ValueError(f"{backend} over {world_size} ranks needs an init_method")
+            rank, world_size, init_method = 0, 1, f"tcp://localhost:{free_port()}"
+        self.backend = backend
+        self.store, self.rank, world_size = next(rendezvous(init_method, rank, world_size, timeout=timeout))
+        self.epoch = -1
+        self.world_size = 0
+        self._join(world_size)
+
+    def _join(self, world_size: int) -> None:
+        self.epoch += 1
+        self.world_size = world_size
+        dist.init_process_group(self.backend, store=PrefixStore(f"epoch{self.epoch}/", self.store),
+                                rank=self.rank, world_size=world_size)
+
+    def reform(self, world_size: int) -> bool:
+        """Destroy the current group and form the next epoch's over ranks
+        ``0 … world_size-1`` (every rank of the current group calls this).
+        Returns whether this rank is in it; one that is not has left."""
+        if not 0 < world_size <= self.world_size:
+            raise ValueError(f"cannot re-form a group of {self.world_size} ranks over {world_size}")
+        destroy_process_group()
+        if self.rank >= world_size:
+            self.world_size = 0
+            return False
+        self._join(world_size)
+        return True
+
+    def close(self) -> None:
+        """Leave: destroy this rank's group (the store lives on while a
+        rank holds it)."""
+        destroy_process_group()
+        self.world_size = 0
 
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],

@@ -425,13 +425,30 @@ def _attention_sharded(cfg, q, k, v, *, local, impl, q_block, kv_block):
         impl = "reference" if q.shape[1] <= 1024 else "chunked"
     q_pl = tuple(p if p.is_shard() and p.dim in (0, 1, 2) else Replicate() for p in q.placements)
     kv_pl = tuple(Replicate() if p.is_shard(1) else p for p in q_pl)
-    dims = [i for i, p in enumerate(q_pl) if p.is_shard(1)]
-    coord, idx = mesh.get_coordinate(), 0
-    for i in dims:
-        idx = idx * mesh.size(i) + coord[i]
-    q_offset = idx * (q.shape[1] // max(1, int(np.prod([mesh.size(i) for i in dims]))))
+    coord = mesh.get_coordinate()
+
+    def rank_of(dims):  # (this rank's index, the count) over mesh dims split major to minor
+        idx = 0
+        for i in dims:
+            idx = idx * mesh.size(i) + coord[i]
+        return idx, int(np.prod([mesh.size(i) for i in dims]))
+
+    idx, n = rank_of([i for i, p in enumerate(q_pl) if p.is_shard(1)])
+    q_offset = idx * (q.shape[1] // n)
+    # query heads split where the K/V heads cannot split with them (fewer
+    # K/V heads than head shards: the head_q strategy): K/V stay whole and
+    # each rank takes the K/V head of each of its query heads
+    idx, n = rank_of([i for i, p in enumerate(q_pl) if p.is_shard(2)])
+    kv_heads = None
+    if k.shape[2] % n:
+        kv_pl = tuple(Replicate() if p.is_shard(2) else p for p in kv_pl)
+        h_local = q.shape[2] // n
+        kv_heads = torch.arange(idx * h_local, (idx + 1) * h_local) // (q.shape[2] // k.shape[2])
 
     def core(q_l, k_l, v_l):
+        if kv_heads is not None:
+            k_l = k_l.index_select(2, kv_heads.to(k_l.device))
+            v_l = v_l.index_select(2, kv_heads.to(v_l.device))
         return _attention_local(cfg, q_l, k_l, v_l, local=local, impl=impl, q_block=q_block,
                                 kv_block=kv_block, q_offset=q_offset)
 

@@ -214,16 +214,44 @@ def init_embedding(cfg: ModelConfig, gen: torch.Generator) -> Params:
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
     table = gather_dp(params)["table"].to(compute_dtype(cfg))
     if is_dtensor(table):
-        # DTensor's embedding rule keeps the token ids where they are (an
-        # index op could gather them) and looks rows up in the vocab shard
-        # each rank holds; the masked partial sum is reduced at once.
-        x = reduce_partial(F.embedding(tokens.long(), table))
+        x = reduce_partial(_embed_sharded(table, tokens))
     else:
         x = table[tokens.long()]
     if cfg.embed_scale:
         # the scale rounded to the compute dtype first, as the reference's
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
     return x
+
+
+def _embed_sharded(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of a DTensor table [V, d] for ``tokens`` (a tensor, or a DTensor
+    split by batch rows), as a partial sum over the mesh dimensions that
+    split the vocabulary: each rank looks up the tokens in its own vocab
+    slice (zero rows for the others), and the token ids stay where they are
+    (an index op could gather them). DTensor's own embedding rule gives a
+    masked partial sum, whose gradient does not add to the head's when the
+    embeddings are tied."""
+    from ..launch.compat import Partial, Replicate, shard_map
+
+    mesh = table.device_mesh
+    vocab_dims = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    if not vocab_dims:
+        return F.embedding(tokens.long(), table)
+    tok_pl = tuple(tokens.placements) if is_dtensor(tokens) else (Replicate(),) * mesh.ndim
+    tok_pl = tuple(Replicate() if i in vocab_dims else p for i, p in enumerate(tok_pl))
+    out_pl = tuple(Partial() if i in vocab_dims else p for i, p in enumerate(tok_pl))
+    coord, shard = mesh.get_coordinate(), 0
+    for i in vocab_dims:  # this rank's vocab slice, split major to minor
+        shard = shard * mesh.size(i) + coord[i]
+
+    def local(tok, tab):
+        width = tab.shape[0]
+        idx = tok.long() - shard * width
+        inside = (idx >= 0) & (idx < width)
+        return tab[idx.clamp(0, width - 1)] * inside[..., None].to(tab.dtype)
+
+    return shard_map(local, mesh=mesh, in_placements=(tok_pl, tuple(table.placements)),
+                     out_placements=out_pl)(tokens, table)
 
 
 def unembed(cfg: ModelConfig, embed_params: Params, head_params: Optional[Params],

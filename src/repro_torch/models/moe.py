@@ -152,26 +152,20 @@ def _gather_groups(cfg: ModelConfig, params: Params, x: torch.Tensor,
     return out.sum(dim=2), aux
 
 
-def _gather_groups_sharded(cfg: ModelConfig, params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`_gather_groups` on DTensors: each rank dispatches its own
-    groups (batch rows) locally, as the reference's GSPMD keeps the
-    batch-sharded dispatch (DTensor has no sharding rule for the dispatch's
-    scatter and index ops). The expert weights come in as each rank holds
-    them after the ZeRO gather: experts split over a mesh dimension
-    (expert parallelism) or their d_ff split (tensor parallelism); either
-    way the output is a partial sum over that dimension."""
-    from ..launch.compat import Partial, Replicate, Shard, shard_map
+def _expert_split(cfg: ModelConfig, params: Params, x: torch.Tensor):
+    """How a DTensor MoE layer splits across the mesh: (mesh, the expert
+    weights' placements, the mesh dimensions that split them, the tokens'
+    placements: each group's tokens whole wherever the weights are split,
+    the output's: a partial sum over those dimensions, their ranks' count,
+    this rank's experts (lo, hi) or None when experts are not split)."""
+    from ..launch.compat import Partial, Replicate, Shard
 
     mesh = x.device_mesh
     w_pl = {k: tuple(params[k].placements) for k in ("wi", "wg", "wo")}
     split = [i for i, p in enumerate(w_pl["wi"]) if not p.is_replicate()]
-    # a group's tokens whole wherever the weights are split
     x_pl = tuple(Shard(0) if p.is_shard(0) and i not in split else Replicate()
                  for i, p in enumerate(x.placements))
     y_pl = tuple(Partial() if i in split else p for i, p in enumerate(x_pl))
-    # every rank of a split dimension computes the same aux loss: a partial
-    # sum of its share keeps each rank's gradient through it one share
-    aux_pl = y_pl
     n_split = int(np.prod([mesh.size(i) for i in split]))
     coord = mesh.get_coordinate()
     e_split = [i for i in split if w_pl["wi"][i].is_shard(0)]
@@ -180,6 +174,23 @@ def _gather_groups_sharded(cfg: ModelConfig, params: Params, x: torch.Tensor) ->
         e_local //= mesh.size(i)
         idx = idx * mesh.size(i) + coord[i]
     experts = (idx * e_local, (idx + 1) * e_local) if e_split else None
+    return mesh, w_pl, split, x_pl, y_pl, n_split, experts
+
+
+def _gather_groups_sharded(cfg: ModelConfig, params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_gather_groups` on DTensors: each rank dispatches its own
+    groups (batch rows) locally, as the reference's GSPMD keeps the
+    batch-sharded dispatch (DTensor has no sharding rule for the dispatch's
+    scatter and index ops). The expert weights come in as each rank holds
+    them after the ZeRO gather: experts split over a mesh dimension
+    (expert parallelism) or their d_ff split (tensor parallelism); either
+    way the output is a partial sum over that dimension."""
+    from ..launch.compat import Replicate, shard_map
+
+    mesh, w_pl, _, x_pl, y_pl, n_split, experts = _expert_split(cfg, params, x)
+    # every rank of a split dimension computes the same aux loss: a partial
+    # sum of its share keeps each rank's gradient through it one share
+    aux_pl = y_pl
 
     def local(x_l, router, wi, wg, wo):
         y, aux = _gather_groups(cfg, {"router": router, "wi": wi, "wg": wg, "wo": wo}, x_l, experts)
@@ -189,6 +200,42 @@ def _gather_groups_sharded(cfg: ModelConfig, params: Params, x: torch.Tensor) ->
     fn = shard_map(local, mesh=mesh, in_placements=(x_pl, rep, w_pl["wi"], w_pl["wg"], w_pl["wo"]),
                    out_placements=[y_pl, aux_pl])
     return fn(x, params["router"], params["wi"], params["wg"], params["wo"])
+
+
+def _dense_sharded(cfg: ModelConfig, params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_dense` on DTensors x [b, s, d]: each rank runs its own
+    batch rows through its own experts (or its share of every expert's
+    d_ff) with the routing weights of those experts, and the outputs are a
+    partial sum over the dimensions that split the weights. The aux loss is
+    the unsharded one, over all b*s tokens: each rank returns its tokens'
+    expert counts and summed probabilities as partial sums (over the batch
+    dimensions, and a 1/n share over the weight-splitting ones, whose ranks
+    route the same tokens), and the loss is formed from their totals."""
+    from ..launch.compat import Partial, Replicate, shard_map
+
+    mesh, w_pl, split, x_pl, y_pl, n_split, experts = _expert_split(cfg, params, x)
+    stat_pl = tuple(Partial() if i in split or p.is_shard() else Replicate() for i, p in enumerate(x_pl))
+    e = cfg.n_experts
+
+    def local(x_l, router, wi, wg, wo):
+        b, s, d = x_l.shape
+        x2d = x_l.reshape(b * s, d)
+        probs, top_w, top_i, _ = _routing(cfg, {"router": router}, x2d)
+        combine = torch.zeros((b * s, e), dtype=torch.float32, device=x2d.device)
+        combine.scatter_add_(1, top_i, top_w.float())            # [T, E]
+        lo, hi = experts or (0, e)
+        ye = _expert_ffn(cfg, {"wi": wi, "wg": wg, "wo": wo}, x2d[None].expand(hi - lo, b * s, d))
+        y = torch.einsum("etd,te->td", ye.float(), combine[:, lo:hi]).to(x2d.dtype)
+        counts = _one_hot(top_i, e).sum(dim=(0, 1)).float()
+        return y.reshape(b, s, d), counts / n_split, probs.sum(dim=0) / n_split
+
+    rep = tuple(Replicate() for _ in x_pl)
+    fn = shard_map(local, mesh=mesh, in_placements=(x_pl, rep, w_pl["wi"], w_pl["wg"], w_pl["wo"]),
+                   out_placements=[y_pl, stat_pl, stat_pl])
+    y, counts, prob_sums = fn(x, params["router"], params["wi"], params["wg"], params["wo"])
+    t = x.shape[0] * x.shape[1]
+    aux = e * ((counts / t) * (prob_sums / t)).sum()
+    return y, aux
 
 
 def moe_gather(cfg: ModelConfig, params: Params, x2d: torch.Tensor,
@@ -259,7 +306,10 @@ def apply_moe(
         return y, aux.mean()
     if dispatch == "dense":
         if is_dtensor(x):
-            raise NotImplementedError("the dense MoE dispatch (scatter_add_) has no DTensor path; use 'gather'")
+            y, aux = _dense_sharded(cfg, params, x)
+            if cfg.n_shared_experts > 0:
+                y = y + _shared_expert(cfg, params["shared"], x)
+            return y, aux
         y, aux = moe_dense(cfg, params, x.reshape(b * s, d))
         return y.reshape(b, s, d), aux
     raise ValueError(f"unknown MoE dispatch {dispatch!r}")

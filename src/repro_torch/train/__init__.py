@@ -1,5 +1,6 @@
 """repro_torch.train — optimizers, the train step, fault tolerance and
-elastic training (the reference's ``train/``), on one device."""
+elastic training (the reference's ``train/``), on one device or across
+processes on a ``DeviceMesh``."""
 
 from .elastic import ElasticConfig, ElasticTrainer, HostMesh
 from .ft import FailureDetector, MembershipEvent, StragglerMonitor, reassign_shards

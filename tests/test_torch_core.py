@@ -186,7 +186,9 @@ def _imported_roots(path):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    files = sorted(PORT_SRC.rglob("*.py"))
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert len(examples) == 6
+    files = sorted(PORT_SRC.rglob("*.py")) + examples + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     bad = {
         (str(f.relative_to(REPO)), root)

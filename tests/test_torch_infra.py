@@ -147,6 +147,50 @@ def test_reference_checkpoint_restores_bit_for_bit(tmp_path):
         np.testing.assert_array_equal(got.numpy(), ref)
 
 
+def _members(path):
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        return {i.filename: zf.read(i.filename) for i in zf.infolist()}
+
+
+def test_checkpoint_members_are_np_savez_bytes(tmp_path):
+    """The streamed writer's members are the bytes ``np.savez`` writes for
+    the same arrays (f32, int32 and a bf16 leaf as ``V2``, a 0-d leaf)."""
+    state = {**_state(), "h": torch.arange(6, dtype=torch.bfloat16).reshape(2, 3)}
+    path = save_checkpoint(str(tmp_path / "port"), 0, state)
+    arrays = {"h": state["h"].view(torch.int16).numpy().view("V2"),
+              "params/b": state["params"]["b"].numpy(), "params/w": state["params"]["w"].numpy(),
+              "step": state["step"].numpy()}
+    np.savez(tmp_path / "ref.npz", **arrays)
+    assert _members(os.path.join(path, "arrays_0.npz")) == _members(tmp_path / "ref.npz")
+
+
+def test_checkpoint_restore_detects_a_damaged_member(tmp_path):
+    import zipfile
+
+    path = save_checkpoint(str(tmp_path), 0, _state())
+    npz = os.path.join(path, "arrays_0.npz")
+    data = bytearray(open(npz, "rb").read())
+    at = data.index(np.arange(12.0, dtype=np.float32).reshape(3, 4).tobytes())
+    data[at + 5] ^= 0x40   # one bit of params/w's data
+    open(npz, "wb").write(bytes(data))
+    with pytest.raises(zipfile.BadZipFile, match="params/w"):
+        restore_checkpoint(str(tmp_path), _state())
+
+
+def test_checkpoint_refuses_a_compressed_archive(tmp_path):
+    """Both packages write stored members (``np.savez``); a compressed
+    archive is refused by name, not mapped."""
+    path = save_checkpoint(str(tmp_path), 0, _state())
+    npz = os.path.join(path, "arrays_0.npz")
+    with np.load(npz) as f:
+        arrays = {k: f[k] for k in f.files}
+    np.savez_compressed(npz, **arrays)
+    with pytest.raises(ValueError, match="compressed"):
+        restore_checkpoint(str(tmp_path), _state())
+
+
 def test_manifest_matches_reference_for_a_train_state(tmp_path):
     """The same AdamW train state (bf16 params, f32 master and moments, the
     int32 step) written by both packages: equal keys (the reference's
