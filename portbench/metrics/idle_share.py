@@ -1,0 +1,8 @@
+"""idle_share: % of the traced window in which the device ran nothing
+(no kernel, copy or set), from the profiler's CUDA activity."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.device:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)
