@@ -40,6 +40,7 @@ from ..models.config import ModelConfig
 from ..models.layers import split_params
 from ..models.mamba2 import ssd_chunked
 from ..models.moe import init_moe, moe_dense, moe_gather
+from ..spans import span
 
 Thunk = Callable[[], Any]
 
@@ -62,13 +63,16 @@ class VariantSite:
         return {v.name: v.flops for v in self.variants}
 
     def workloads(self, seed: int = 0, warmup: bool = True) -> Dict[str, Thunk]:
-        tensors = self.make_inputs(seed)
+        """name -> timed thunk on inputs drawn from ``seed``, each run once
+        when ``warmup``; the whole build is the span ``rt.build``."""
         table: Dict[str, Thunk] = {}
-        for v in self.variants:
-            thunk = v.build(*tensors)
-            if warmup:
-                thunk()
-            table[v.name] = thunk
+        with span("rt.build"):
+            tensors = self.make_inputs(seed)
+            for v in self.variants:
+                thunk = v.build(*tensors)
+                if warmup:
+                    thunk()
+                table[v.name] = thunk
         return table
 
 

@@ -23,8 +23,7 @@ run. Wall-clock campaigns resume by re-attaching workloads via the
 Each session carries its own batched quantile table across the campaign
 (see :class:`~repro_torch.core.comparison.QuantileTable`): interleaving does not
 discard analysis work, because the table keys on the session store's
-version counter and only the stepped session's store mutates. Per-iteration
-analysis cost is visible on each session's ``analysis_seconds``.
+version counter and only the stepped session's store mutates.
 """
 
 from __future__ import annotations

@@ -29,6 +29,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
+from ..spans import span
+
 
 def rng_state(rng: np.random.Generator) -> Dict[str, Any]:
     """JSON-serializable state of a numpy Generator (exact-resume support)."""
@@ -295,26 +297,29 @@ class WallClockTimer(Timer):
         """Batched sampling: one workload lookup (and one calibration /
         blocking-contract check, ever) per workload — the per-sample loop
         is just clock/call/clock, or clock/r-calls/clock divided by ``r``
-        for workloads under the minimum-measurable floor."""
+        for workloads under the minimum-measurable floor. The whole batch,
+        calibration included, is the span ``rt.measure``; no sample's clock
+        holds any part of it."""
         fn = self._workloads[name]
         out: List[float] = []
         if m <= 0:
             return out
-        r = self._inner_repeats.get(name)
-        if r is None:
-            r = self._calibrate(name, fn)
-        perf = time.perf_counter
-        if r == 1:
+        with span("rt.measure"):
+            r = self._inner_repeats.get(name)
+            if r is None:
+                r = self._calibrate(name, fn)
+            perf = time.perf_counter
+            if r == 1:
+                while len(out) < m:
+                    t0 = perf()
+                    fn()
+                    out.append(perf() - t0)
+                return out
             while len(out) < m:
                 t0 = perf()
-                fn()
-                out.append(perf() - t0)
-            return out
-        while len(out) < m:
-            t0 = perf()
-            for _ in range(r):
-                fn()
-            out.append((perf() - t0) / r)
+                for _ in range(r):
+                    fn()
+                out.append((perf() - t0) / r)
         return out
 
 

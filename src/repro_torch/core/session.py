@@ -25,11 +25,11 @@ sessions as one campaign.
 from __future__ import annotations
 
 import math
-import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
+from ..spans import span
 from .comparison import QuantileTable
 from .meanrank import MeanRankResult, mean_ranks
 from .measure import (
@@ -161,7 +161,6 @@ class MeasurementSession:
         # produce identical state, so persisted JSON stays byte-equal.
         self._vectorized = vectorized
         self._qtable: Optional[QuantileTable] = None
-        self._analysis_seconds: List[float] = []
 
     # ------------------------------------------------------------ state ---
 
@@ -214,14 +213,6 @@ class MeasurementSession:
         """True when analysis runs through the batched quantile table."""
         return self._vectorized
 
-    @property
-    def analysis_seconds(self) -> List[float]:
-        """Wall seconds the *analysis* (Procedure 3 over the ladder) took in
-        each iteration run by this process — the quantity
-        ``benchmarks/bench_rank_scaling.py`` sweeps. Not serialized: timings
-        are an artifact of this host, not campaign state."""
-        return list(self._analysis_seconds)
-
     # --------------------------------------------------------- analysis ---
 
     def _table(self) -> QuantileTable:
@@ -234,7 +225,7 @@ class MeasurementSession:
         return self._qtable
 
     def _mean_ranks(self) -> MeanRankResult:
-        """One Procedure-3 pass over the current store, timed.
+        """One Procedure-3 pass over the current store.
 
         The vectorized path (default) flows the batched quantile table
         through every Procedure-2 sort of the ladder; ``vectorized=False``
@@ -242,9 +233,8 @@ class MeasurementSession:
         ``np.percentile`` pair per comparison) bit-for-bit — the golden
         tests hold the two paths equal.
         """
-        t0 = time.perf_counter()
         if self._vectorized:
-            mr = mean_ranks(
+            return mean_ranks(
                 self._order,
                 None,
                 quantile_ranges=self.quantile_ranges,
@@ -252,17 +242,14 @@ class MeasurementSession:
                 tie_break=self.tie_break,
                 table=self._table(),
             )
-        else:
-            mr = mean_ranks(
-                self._order,
-                self._store.as_mapping(),
-                quantile_ranges=self.quantile_ranges,
-                report_range=self.report_range,
-                tie_break=self.tie_break,
-                memoize=False,
-            )
-        self._analysis_seconds.append(time.perf_counter() - t0)
-        return mr
+        return mean_ranks(
+            self._order,
+            self._store.as_mapping(),
+            quantile_ranges=self.quantile_ranges,
+            report_range=self.report_range,
+            tie_break=self.tie_break,
+            memoize=False,
+        )
 
     # ------------------------------------------------------------- loop ---
 
@@ -273,41 +260,46 @@ class MeasurementSession:
         the timer's RNG snapshot restored if it is interrupted, so a save
         taken after the exception persists a whole-iteration boundary and
         resume stays bit-identical to an uninterrupted run.
+
+        The iteration is the span ``rt.rank.step``; its host work after the
+        batch, the span ``rt.rank.update``.
         """
         if self.done:
             return None
-        snap = self._timer.snapshot()
-        try:
-            batch = [
-                (name, self._timer.measure_many(name, self.m_per_iteration))
-                for name in self._order
-            ]
-        except BaseException:
-            self._timer.restore(snap)
-            raise
-        for name, values in batch:
-            self._store.add(name, values)
-        n = self._store.min_count()
-        if self._shuffle_rng is not None:
-            self._store.shuffle(self._shuffle_rng)
+        with span("rt.rank.step"):
+            snap = self._timer.snapshot()
+            try:
+                batch = [
+                    (name, self._timer.measure_many(name, self.m_per_iteration))
+                    for name in self._order
+                ]
+            except BaseException:
+                self._timer.restore(snap)
+                raise
+            with span("rt.rank.update"):
+                for name, values in batch:
+                    self._store.add(name, values)
+                n = self._store.min_count()
+                if self._shuffle_rng is not None:
+                    self._store.shuffle(self._shuffle_rng)
 
-        mr = self._mean_ranks()
-        x = np.asarray(mr.ordered_mean_ranks(), dtype=np.float64)
-        dx = first_differences(x)
-        self._norm = convergence_norm(dx, self._dy, self._p)
-        self._dy = dx
-        self._order = list(mr.order)  # h <- ordering from the report range
+                mr = self._mean_ranks()
+                x = np.asarray(mr.ordered_mean_ranks(), dtype=np.float64)
+                dx = first_differences(x)
+                self._norm = convergence_norm(dx, self._dy, self._p)
+                self._dy = dx
+                self._order = list(mr.order)  # h <- ordering from the report range
 
-        rec = IterationRecord(
-            measurements_per_alg=n,
-            order=tuple(mr.order),
-            ranks=tuple(mr.ranks),
-            mean_ranks=tuple(mr.mean_ranks[name] for name in mr.order),
-            norm=self._norm,
-        )
-        self._history.append(rec)
-        if self._norm < self.eps:
-            self._converged = True
+                rec = IterationRecord(
+                    measurements_per_alg=n,
+                    order=tuple(mr.order),
+                    ranks=tuple(mr.ranks),
+                    mean_ranks=tuple(mr.mean_ranks[name] for name in mr.order),
+                    norm=self._norm,
+                )
+                self._history.append(rec)
+                if self._norm < self.eps:
+                    self._converged = True
         return rec
 
     def run_to_convergence(self) -> RankingResult:
@@ -327,15 +319,16 @@ class MeasurementSession:
             self._store.add(
                 name, self._timer.measure_many(name, max(1, self.m_per_iteration))
             )
-        mr = self._mean_ranks()
-        rec = IterationRecord(
-            measurements_per_alg=self._store.min_count(),
-            order=tuple(mr.order),
-            ranks=tuple(mr.ranks),
-            mean_ranks=tuple(mr.mean_ranks[name] for name in mr.order),
-            norm=self._norm,
-        )
-        self._fallback = rec
+        with span("rt.rank.update"):
+            mr = self._mean_ranks()
+            rec = IterationRecord(
+                measurements_per_alg=self._store.min_count(),
+                order=tuple(mr.order),
+                ranks=tuple(mr.ranks),
+                mean_ranks=tuple(mr.mean_ranks[name] for name in mr.order),
+                norm=self._norm,
+            )
+            self._fallback = rec
         return rec
 
     def can_rank(self) -> bool:

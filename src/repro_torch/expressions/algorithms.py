@@ -35,6 +35,7 @@ import torch
 
 from ..device import DeviceLike, block, resolve_device
 from ..graphs import capture
+from ..spans import span
 from .chain import ChainAlgorithm, Step
 
 Gemm = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -129,14 +130,16 @@ def build_workloads(
     With ``warmup=True`` each callable is executed once here so that
     library set-up ("library overheads", paper Sec. I step 1: cuBLAS
     handles, the hand GEMM's first load; with ``jit`` on the card, the
-    graph's first replay) never lands inside a timed region.
+    graph's first replay) never lands inside a timed region. The whole
+    build is the span ``rt.build``.
     """
     table: Dict[str, Callable[[], torch.Tensor]] = {}
-    for alg in algs:
-        fn = build_algorithm_fn(alg, matrices, jit=jit, gemm=gemm)
-        if warmup:
-            fn()
-        table[alg.name] = fn
+    with span("rt.build"):
+        for alg in algs:
+            fn = build_algorithm_fn(alg, matrices, jit=jit, gemm=gemm)
+            if warmup:
+                fn()
+            table[alg.name] = fn
     return table
 
 

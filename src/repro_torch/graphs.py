@@ -15,7 +15,12 @@ generation loop needs; :func:`measured_thunk` for the timed thunks):
   private memory pool of its own, so two graphs never alias each other's
   outputs however their replays interleave, and the pool is freed with
   the graph.
+- The replay holds the graph, its output and the captured function: the
+  graph reads the memory of the operands the function closes over, so
+  they live as long as the replay does, whatever the caller drops.
 - A capture that fails raises; nothing falls back to eager launches.
+- The whole of it, warm-up to the streams' join, is the span
+  ``rt.graph.capture`` (:mod:`repro_torch.spans`).
 
 The hand GEMM's wrapper counts its launches through :func:`count_launch`:
 at once when it launches, or, while a stream is being captured, at each
@@ -34,6 +39,7 @@ from typing import Any, Callable, Iterator, List
 import torch
 
 from .device import block
+from .spans import span
 
 #: launches recorded by the captures in progress, innermost last
 _recording: List[List[Callable[[], None]]] = []
@@ -69,7 +75,7 @@ def capture_async(fn: Callable[[], Any], device: torch.device) -> Callable[[], A
     on the current stream and returns ``fn``'s output (what it returned
     during capture, rewritten by every replay) without waiting for it."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    with torch.cuda.device(index):
+    with span("rt.graph.capture"), torch.cuda.device(index):
         side = _capture_stream(index)
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -94,6 +100,7 @@ def capture_async(fn: Callable[[], Any], device: torch.device) -> Callable[[], A
             bump()
         return out
 
+    replay.fn = fn  # the operands fn closes over: the graph reads their memory
     return replay
 
 

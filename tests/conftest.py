@@ -10,3 +10,9 @@ inside ``repro.launch.dryrun`` (smoke tests and benches must not see 512).
 import os
 
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one (run: pytest -m cuda)"
+    )
