@@ -3519,6 +3519,10 @@ def main():
     details["models"]["seconds"]["phase"] = time.perf_counter() - t_models
     mark("14 models")
     log(f"[14 models] phase 14 took {details['models']['seconds']['phase']:.1f} s [{card}]")
+    # the serving graphs' pools stay reserved on the free list until released
+    from repro_torch import graphs
+    graphs.release_pools()
+    torch.cuda.empty_cache()
     t_train = time.perf_counter()
     details["train"] = phase_train(torch, kmod, fmod, smod, card)
     details["train"]["seconds"]["phase"] = time.perf_counter() - t_train

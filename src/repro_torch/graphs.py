@@ -11,10 +11,20 @@ generation loop needs; :func:`measured_thunk` for the timed thunks):
 - The function first runs eagerly on a side stream, outside the capture:
   one-time set-up (cuBLAS's workspace for that stream, the hand GEMM's
   once-per-instantiation ``cudaFuncSetAttribute``) must not be recorded.
-- It is then captured once on the same stream. The graph allocates from a
-  private memory pool of its own, so two graphs never alias each other's
-  outputs however their replays interleave, and the pool is freed with
-  the graph.
+- It is then captured once on the same stream. The graph, and its warm-up
+  before it, allocate from a memory pool that no other live graph uses, so
+  two graphs never alias each other's outputs however their replays
+  interleave. When the replay is collected its pool goes back on its
+  device's free list, and a later capture takes it (first returned, first
+  taken; a new pool only when the list is empty): the blocks it
+  already holds serve that capture, so a caller that builds and drops
+  graphs verdict after verdict stops paying ``cudaMalloc`` and
+  ``cudaFree`` for them. A tensor that outlives its graph stays an
+  allocated block no later capture can take, and a capture's side stream
+  waits for the current stream, where the dropped graph replayed, before
+  it touches the pool. Pools on the free list stay reserved, whatever
+  ``torch.cuda.empty_cache()`` does, until :func:`release_pools`. Getting a
+  pool is the span ``rt.graph.pool.reused`` or ``rt.graph.pool.new``.
 - The replay holds the graph, its output and the captured function: the
   graph reads the memory of the operands the function closes over, so
   they live as long as the replay does, whatever the caller drops.
@@ -31,10 +41,14 @@ and the SSD scan are never captured: their wrappers count directly.)
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import functools
-from typing import Any, Callable, Iterator, List
+import threading
+import warnings
+import weakref
+from typing import Any, Callable, Deque, Dict, Iterator, List
 
 import torch
 
@@ -69,6 +83,65 @@ def _capture_stream(index: int) -> torch.cuda.Stream:
     return torch.cuda.Stream(device=index)
 
 
+#: per device index, the pools of dropped graphs in the order they came back
+_free_pools: Dict[int, Deque[Any]] = {}
+#: re-entrant: a collection inside a locked section may run a replay's finalizer
+_pools_lock = threading.RLock()
+
+
+class _Pool:
+    """A memory pool on the current device that one graph at a time
+    captures into. A ``torch.cuda.MemPool`` holds its device blocks. An
+    empty graph captured into it, never replayed, keeps a graph on the pool
+    at all times: the pinned-memory allocator keeps a pool whose last graph
+    died at a use count of zero, and a later capture into it fails an
+    internal assertion (torch 2.11)."""
+
+    def __init__(self) -> None:
+        self.mem = torch.cuda.MemPool()
+        self.anchor = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(_capture_stream(torch.cuda.current_device())):
+            self.anchor.capture_begin(pool=self.mem.id)
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
+                self.anchor.capture_end()
+
+
+def _take_pool(index: int) -> Any:
+    """A pool for one new graph on device ``index``: the one that came back
+    to the device's free list first, else a new one. Graphs built together
+    are dropped in the order they were built, so each graph of the next
+    such build gets the pool that its counterpart grew."""
+    with _pools_lock:
+        free = _free_pools.get(index)
+        pool = free.popleft() if free else None
+    if pool is not None:
+        with span("rt.graph.pool.reused"):
+            return pool
+    with span("rt.graph.pool.new"):
+        return _Pool()
+
+
+def _give_back(index: int, pool: Any) -> None:
+    with _pools_lock:
+        _free_pools.setdefault(index, collections.deque()).append(pool)
+
+
+def _return_pool_with(owner: Any, index: int, pool: Any) -> None:
+    """Put ``pool`` back on device ``index``'s free list once ``owner``, the
+    only holder of the graph that uses it, is collected."""
+    weakref.finalize(owner, _give_back, index, pool).atexit = False
+
+
+def release_pools() -> None:
+    """Drop every device's free list: a later ``torch.cuda.empty_cache()``
+    can then return the pools' memory. Pools of live graphs are kept. Call
+    it with no capture in progress on any thread: a pool destroyed during
+    a capture aborts the process (torch 2.11)."""
+    with _pools_lock:
+        _free_pools.clear()
+
+
 def capture_async(fn: Callable[[], Any], device: torch.device) -> Callable[[], Any]:
     """``fn``'s launches on ``device`` as one CUDA graph: warm ``fn`` up,
     capture it once and return a zero-arg callable that replays the graph
@@ -76,16 +149,17 @@ def capture_async(fn: Callable[[], Any], device: torch.device) -> Callable[[], A
     during capture, rewritten by every replay) without waiting for it."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     with span("rt.graph.capture"), torch.cuda.device(index):
+        pool = _take_pool(index)
         side = _capture_stream(index)
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), torch.cuda.use_mem_pool(pool.mem, device=index):
             fn()
         graph = torch.cuda.CUDAGraph()
         launches: List[Callable[[], None]] = []
         _recording.append(launches)
         try:
             with torch.cuda.stream(side):
-                graph.capture_begin()  # no pool given: a private pool of its own
+                graph.capture_begin(pool=pool.mem.id)
                 try:
                     out = fn()
                 finally:
@@ -101,6 +175,7 @@ def capture_async(fn: Callable[[], Any], device: torch.device) -> Callable[[], A
         return out
 
     replay.fn = fn  # the operands fn closes over: the graph reads their memory
+    _return_pool_with(replay, index, pool)
     return replay
 
 

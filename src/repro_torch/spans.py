@@ -9,6 +9,9 @@ device's activity:
   :meth:`repro_torch.autotune.variants.VariantSite.workloads`;
 - ``rt.graph.capture``: one CUDA graph captured, its eager warm-up
   included (:func:`repro_torch.graphs.capture_async`);
+- ``rt.graph.pool.reused`` or ``rt.graph.pool.new``, inside it: the
+  capture's memory pool taken from its device's free list, or made because
+  the list was empty;
 - ``rt.measure``: one batch of samples of one workload, calibration
   included (:meth:`repro_torch.core.measure.WallClockTimer.measure_many`);
 - ``rt.rank.step``: one Procedure-4 iteration
