@@ -196,7 +196,19 @@ Phases (any failure exits non-zero and prints no result):
    launcher in this process; (c) each ``examples/torch_*.py`` once in this
    process (its own ``__main__``, flags from ``EXAMPLES``): each must end
    without an error, and its seconds, headline lines and hand-kernel
-   launches are printed. The counters over (a) and (b) must read 0.
+   launches are printed. The counters over (a) and (b) must read 0;
+18. deepseek-v2-lite (multi-head latent attention) at published widths in
+   bf16 as shipped, all 27 layers, weights drawn on the card: a prefill of
+   16384 tokens, an extend step of 256 against the latent cache, 32 decode
+   steps on one CUDA graph; every logit row against the float32 plain
+   reference (``models/deepseek_v2_reference.py``, a layer at a time, TF32
+   off) from the same weights, held within ``MLA_TOL`` (the largest error
+   relative to the largest reference logit, and the 2-norm of the errors
+   relative to the reference's); the same prefill with the weights rounded
+   to float8 (e4m3) must fall outside it; then the same path in float32
+   (a prefill of 4096, an extend of 256, 8 decode steps) against the
+   reference within ``MLA_F32_TOL``; seconds, peak memory and each step's
+   dispatch (absorbed or decompressed) recorded.
 
 Each kernel's launch counter is set to 0 just before each path and read just
 after it. The next-to-last line is a JSON object with the kernels' numbers,
@@ -305,6 +317,11 @@ EXAMPLES = (                           # phase 17 (c): each example's flags ("{w
      "--ckpt-dir", "{work}/train_lm"),
 )
 EXAMPLE_HEADLINES = ("FLOPs test", "<= selected", "anomaly rate", "census:", "anomalies explained", "tok/s")
+MLA_ARCH = "deepseek-v2-lite"          # phase 18: full width, bf16
+MLA_SHAPE = (16384, 256, 32)           # prefill tokens, extend tokens, decode steps
+MLA_TOL = {"max": 0.15, "rms": 0.15}   # bf16 logits against f32, relative: max |d| / max |ref|, |d| / |ref|
+MLA_F32_SHAPE = (4096, 256, 8)         # phase 18's float32 pass (62.8 GB of weights)
+MLA_F32_TOL = 1e-4                     # its logits against the f32 reference: max |d| / max |ref|
 TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
 
 # Planted faults in the GEMM that the 1000^3 f32 comparison at the 64^3 tile
@@ -3063,6 +3080,135 @@ def phase_elastic(torch, kmod, fmod, smod, card, plain_step_ms, device="cuda", a
     return out
 
 
+def mla_errors(torch, got, want):
+    """max |got - want| over max |want|, and the same in the 2-norm over
+    every logit (a few rows whose top experts flip on rounding move the
+    first, not the second)."""
+    d = got.float() - want
+    return {"max": float(d.abs().max() / want.abs().max()), "rms": float(d.norm() / want.norm())}
+
+
+def mla_model_run(torch, T, R, cfg, params, shape, dev, say):
+    """Prefill, extend and decode steps on one CUDA graph through the model's
+    entry points, then the plain reference's logits at the same rows.
+    Returns (record, {prefill|extend|decode: (port, reference) logits})."""
+    from repro_torch.graphs import capture_async, release_pools
+    from repro_torch.models.mla import pick_algorithm
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    p, e, n = shape
+    total = p + e + n
+    rec = {"dtype": cfg.dtype, "shape": list(shape), "seconds": {},
+           "dispatch": {"prefill": pick_algorithm(cfg, p, p), "extend": pick_algorithm(cfg, e, p + e),
+                        "decode": pick_algorithm(cfg, 1, total)}}
+    tokens = torch.from_numpy(np.random.default_rng(18).integers(0, cfg.vocab_size, total)).to(dev)
+    state = T.init_lm_state(cfg, 1, total, device=dev)
+    t0 = time.perf_counter()
+    prefill = T.lm_prefill_inplace(cfg, params, state, tokens=tokens[None, :p])
+    sync()
+    rec["seconds"]["prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    extend = T.lm_extend_inplace(cfg, params, state, tokens[None, p:p + e], p)
+    sync()
+    rec["seconds"]["extend"] = time.perf_counter() - t0
+    tok = tokens[None, p + e:p + e + 1].clone()
+    pos = torch.tensor(p + e, device=dev)
+    if dev.type == "cuda":  # one graph, replayed per step with the token and position set on the card
+        t0 = time.perf_counter()
+        step = capture_async(lambda: T.lm_decode_inplace(cfg, params, state, tok, pos), dev)
+        sync()
+        rec["seconds"]["capture"] = time.perf_counter() - t0
+    else:
+        def step():
+            return T.lm_decode_inplace(cfg, params, state, tok, pos)
+    decoded = []
+    t0 = time.perf_counter()
+    for t in range(p + e, total):
+        tok.copy_(tokens[None, t:t + 1])
+        pos.fill_(t)
+        decoded.append(step().clone())
+    sync()
+    rec["seconds"]["decode"] = time.perf_counter() - t0
+    rec["decode_ms_per_step"] = 1000.0 * rec["seconds"]["decode"] / n
+    del step, state
+    release_pools()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        rec["model_peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    t0 = time.perf_counter()
+    ref = R.forward(cfg, params, tokens, rows=[p - 1] + list(range(p, total)))
+    sync()
+    rec["seconds"]["reference"] = time.perf_counter() - t0
+    pairs = {"prefill": (prefill[0][None], ref[:1]), "extend": (extend[0], ref[1:1 + e]),
+             "decode": (torch.cat(decoded), ref[1 + e:])}
+    rec["errors"] = {k: mla_errors(torch, *v) for k, v in pairs.items()}
+    rec["argmax_agree"] = {k: float((a.argmax(-1) == b.argmax(-1)).float().mean()) for k, (a, b) in pairs.items()}
+    say(f"{cfg.n_layers} layers {cfg.dtype}: prefill {p} ({rec['dispatch']['prefill']}) "
+        f"{rec['seconds']['prefill']:.2f} s, extend {e} ({rec['dispatch']['extend']}) "
+        f"{rec['seconds']['extend']:.3f} s, {n} decode steps ({rec['dispatch']['decode']}) on a graph "
+        f"{rec['decode_ms_per_step']:.2f} ms a step; reference {rec['seconds']['reference']:.1f} s; "
+        f"logits against the f32 reference (max, rms relative) {json.dumps(rec['errors'])}; "
+        f"argmax agreement {json.dumps(rec['argmax_agree'])}")
+    return rec, pairs
+
+
+def phase_mla(torch, card, device="cuda", cfg=None, shape=MLA_SHAPE, f32_shape=MLA_F32_SHAPE):
+    """Phase 18: deepseek-v2-lite through the model's normal entry points at
+    published widths (see the module docstring). Returns the record."""
+    import repro_torch.models as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import deepseek_v2_reference as R
+
+    def say(msg):
+        log(f"[18 mla] {msg} [{card}]")
+
+    dev = torch.device(device)
+    cfg = cfg or get_config(MLA_ARCH)
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "tolerance": MLA_TOL, "f32_tolerance": MLA_F32_TOL}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, _ = T.init_lm_params(cfg, seed=0, device=dev)
+    rec["seconds"] = {"init": time.perf_counter() - t0}
+    rec["param_bytes"] = sum(x.numel() * x.element_size() for x in T.layers.tree_leaves(params))
+    rec["model"], pairs = mla_model_run(torch, T, R, cfg, params, shape, dev, say)
+    bad = {k: v for k, v in rec["model"]["errors"].items() if any(v[m] > MLA_TOL[m] for m in MLA_TOL)}
+    if bad:
+        sys.exit(f"chip_smoke: {cfg.name}'s {cfg.dtype} logits disagree with the float32 reference: {bad}")
+
+    # the control: the same prefill with every weight rounded to float8 e4m3 (in place)
+    for x in T.layers.tree_leaves(params):
+        x.copy_(x.to(torch.float8_e4m3fn))
+    p = shape[0]
+    control = T.lm_prefill_inplace(cfg, params, T.init_lm_state(cfg, 1, p, device=dev),
+                                   tokens=torch.from_numpy(np.random.default_rng(18).integers(
+                                       0, cfg.vocab_size, p))[None].to(dev))
+    rec["control_errors"] = mla_errors(torch, control, pairs["prefill"][1])
+    say(f"control, weights in float8 e4m3: prefill's logits (max, rms relative) "
+        f"{json.dumps(rec['control_errors'])} (must exceed {json.dumps(MLA_TOL)} in one)")
+    if all(rec["control_errors"][m] <= MLA_TOL[m] for m in MLA_TOL):
+        sys.exit(f"chip_smoke: {cfg.name}'s float8 control passes the tolerance: {rec['control_errors']}")
+    del params, control, pairs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the same path in float32 (weights drawn from the same seed, not rounded)
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params, _ = T.init_lm_params(cfg32, seed=0, device=dev)
+    rec["f32"], _ = mla_model_run(torch, T, R, cfg32, params, f32_shape, dev, say)
+    worst = max(v["max"] for v in rec["f32"]["errors"].values())
+    if worst > MLA_F32_TOL:
+        sys.exit(f"chip_smoke: {cfg.name}'s float32 logits disagree with the float32 reference: {worst}")
+    del params
+    if dev.type == "cuda":
+        rec["peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     import torch
 
@@ -3539,6 +3685,11 @@ def main():
     details["elastic"]["seconds"]["phase"] = time.perf_counter() - t_elastic
     mark("17 elastic")
     log(f"[17 elastic] phase 17 took {details['elastic']['seconds']['phase']:.1f} s [{card}]")
+    t_mla = time.perf_counter()
+    details["mla"] = phase_mla(torch, card)
+    details["mla"]["seconds"]["phase"] = time.perf_counter() - t_mla
+    mark("18 mla")
+    log(f"[18 mla] phase 18 took {details['mla']['seconds']['phase']:.1f} s [{card}]")
     example_counts = [(f"examples[{k_}]", v["kernel_launches"]) for k_, v in details["elastic"]["examples"].items()]
     for path_, counts in [(p_, details[ph]["kernel_launches"]) for p_, ph in (
             ("models[serve]", "models"), ("models[train]", "train"), ("distributed[a]", "distributed"),

@@ -1,8 +1,9 @@
 """repro_torch.autotune — the paper's ranking methodology as the port's
 variant selector (measured or cost-modelled), campaign-capable via the
 core ExperimentEngine. ``tuner`` is a copy of the reference's; ``variants``
-carries the ``attention_impl``, ``moe_dispatch`` and ``ssd_chunk`` sites and
-the ``matmul_blocks`` site on the hand-written Hopper GEMM."""
+carries the ``attention_impl``, ``moe_dispatch`` and ``ssd_chunk`` sites,
+the ``matmul_blocks`` site on the hand-written Hopper GEMM, and the port's
+own ``mla`` site (latent attention's absorbed and decompressed orders)."""
 
 from .tuner import (
     CampaignSite,
@@ -20,6 +21,7 @@ from .variants import (
     VariantSite,
     attention_site,
     matmul_blocks_site,
+    mla_site,
     moe_dispatch_site,
     ssd_chunk_site,
 )
@@ -32,6 +34,7 @@ __all__ = [
     "attention_site",
     "build_session",
     "matmul_blocks_site",
+    "mla_site",
     "moe_dispatch_site",
     "prepare_site",
     "rank_site",

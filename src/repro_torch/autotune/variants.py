@@ -14,12 +14,16 @@ analytic FLOP count, so the FLOPs-discriminant test applies directly.
   is a textbook anomaly.
 * ``ssd_chunk`` — Mamba-2 chunk length (``models/mamba2.py``): equal
   leading-order FLOPs.
+* ``mla`` — latent attention's absorbed and decompressed orders, each with
+  materialised or blockwise scores (``models/mla.py``), for an extend
+  step against a latent cache: FLOPs cross over with the new tokens
+  against the cache's length, and are equal inside an order.
 * ``matmul_blocks`` — the hand-written Hopper GEMM's tile shapes plus the
   library baseline ``torch_matmul`` (cuBLAS; the reference's ``xla_dot``):
   equal FLOPs exactly.
 
 Like the reference's, the attention, MoE and SSD sites time the plain
-model code; none has a kernel variant. Each variant's timed thunk is the
+model code; none has a kernel variant. The MLA site is the port's own. Each variant's timed thunk is the
 reference's jitted thunk as one CUDA graph on the card
 (:func:`~repro_torch.graphs.measured_thunk`), eager on the CPU.
 """
@@ -27,7 +31,7 @@ reference's jitted thunk as one CUDA graph on the card
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -37,8 +41,10 @@ from ..kernels.matmul.matmul import check_tile
 from ..kernels.matmul.ops import matmul
 from ..models.attention import attention_chunked, attention_reference
 from ..models.config import ModelConfig
+from ..models.flops import mla_algorithm_flops
 from ..models.layers import split_params
 from ..models.mamba2 import ssd_chunked
+from ..models.mla import ALGORITHMS, init_mla, mla_attention
 from ..models.moe import init_moe, moe_dense, moe_gather
 from ..spans import span
 
@@ -198,6 +204,56 @@ def ssd_chunk_site(
         variants=tuple(
             Variant(f"chunk_{q}", flops(q), make(q), {"chunk": q}) for q in chunks
         ),
+        make_inputs=inputs,
+    )
+
+
+# ------------------------------------------------------------- MLA site ----
+
+def mla_site(
+    q: int = 256, L: int = 16384, b: int = 1,
+    cfg: Optional[ModelConfig] = None,
+    params: Optional[Dict[str, torch.Tensor]] = None,
+    dtype: torch.dtype = torch.float32,
+    device: DeviceLike = "cuda",
+) -> VariantSite:
+    """One extend step of the model path's latent-attention sublayer
+    (:func:`~repro_torch.models.mla.mla_attention`): ``q`` new tokens'
+    normed hidden states [b, q, d] in, the sublayer's output out, their
+    latents written into rows L − q … L − 1 of a latent cache of ``L``
+    rows ({c: [b, L, r], kr: [b, L, dr]}) and attended to with the rows
+    before them. ``cfg`` defaults to deepseek-v2-lite's widths; ``params``
+    (:func:`~repro_torch.models.mla.init_mla`'s tree) to weights drawn
+    from seed 7. Inputs: (x, c, kr)."""
+    if cfg is None:
+        from ..configs import get_config
+
+        cfg = get_config("deepseek-v2-lite")
+    dev = resolve_device(device)
+    if params is None:
+        drawn, _ = split_params(init_mla(cfg, torch.Generator(device=dev).manual_seed(7)))
+        params = {k: v.to(dtype) for k, v in drawn.items()}
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+
+    def inputs(seed: int):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((b, q, cfg.d_model), generator=gen, device=dev).to(dtype)
+        c = torch.randn((b, L, r), generator=gen, device=dev).to(dtype)
+        kr = torch.randn((b, L, dr), generator=gen, device=dev).to(dtype)
+        return [x, c, kr]
+
+    def make(name):
+        def build(x, c, kr):
+            return measured_thunk(
+                lambda x, c, kr: mla_attention(cfg, params, x, L - q, {"c": c, "kr": kr}, impl=name),
+                x, c, kr,
+            )
+        return build
+
+    flops = mla_algorithm_flops(cfg, q, L, b)
+    return VariantSite(
+        name=f"mla[q{q} L{L} b{b}]",
+        variants=tuple(Variant(name, flops[name], make(name), {"algorithm": name}) for name in ALGORITHMS),
         make_inputs=inputs,
     )
 

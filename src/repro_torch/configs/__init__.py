@@ -12,7 +12,7 @@ oracle, which must not pay the model stack's import.
 
 from typing import TYPE_CHECKING, Dict, List
 
-from .shapes import LONG_CONTEXT_ARCHS, SHAPES, SKIPS, ShapeSpec, bucket_bounds, cells, shape_bucket
+from .shapes import ARCH_SKIPS, LONG_CONTEXT_ARCHS, SHAPES, SKIPS, ShapeSpec, bucket_bounds, cells, shape_bucket
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.models.config import ModelConfig
@@ -28,6 +28,7 @@ _MODULES = {
     "whisper-tiny": "whisper_tiny",
     "jamba-v0.1-52b": "jamba_v01_52b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "deepseek-v2-lite": "deepseek_v2_lite",
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)
@@ -48,6 +49,7 @@ def all_configs(smoke: bool = False) -> Dict[str, "ModelConfig"]:
 
 __all__ = [
     "ARCH_NAMES",
+    "ARCH_SKIPS",
     "LONG_CONTEXT_ARCHS",
     "SHAPES",
     "SKIPS",

@@ -12,7 +12,7 @@ buckets shared by the census report tables
 (:func:`repro_torch.core.sweep.size_bucket` delegates here) and the
 serving oracle's cache keys (:mod:`repro_torch.serve.cache`), so "which
 bucket does size n fall in" has exactly one answer everywhere. A copy of the reference's
-``repro.configs.shapes``; the architecture configs are not ported yet.
+``repro.configs.shapes``, with :data:`ARCH_SKIPS` for the port's own archs.
 """
 
 from __future__ import annotations
@@ -49,6 +49,15 @@ SKIPS: Dict[Tuple[str, str], str] = {
     ("llava-next-mistral-7b", "long_500k"): "mistral SWA backbone, but vision-prefill → 500k decode cell is out of the VLM serving envelope; skipped with the full-attention group",
     ("whisper-tiny", "long_500k"): "enc-dec with 1500-frame encoder context; 500k decode undefined",
 }
+
+#: Archs of the port's own (none in the reference) whose sharding plans are
+#: not written yet: every shape of theirs, named or given as
+#: kind:seq_len:batch, is skipped with this reason.
+ARCH_SKIPS: Dict[str, str] = {
+    "deepseek-v2-lite": "latent attention has no sharding plan yet: its latent cache, absorbed "
+                        "and decompressed attention run on one device only",
+}
+SKIPS.update({(arch, shape): reason for arch, reason in ARCH_SKIPS.items() for shape in SHAPES})
 
 
 def cells(arch_names: List[str]) -> List[Tuple[str, str, Optional[str]]]:

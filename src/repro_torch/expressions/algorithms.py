@@ -53,15 +53,17 @@ def make_chain_inputs(
     and the card get the same numbers), scaled by ``1/sqrt(cols)`` as in
     the reference. The numbers differ from ``jax.random``'s for the same
     seed: to hold the port against the reference on equal inputs, make them
-    with numpy and pass them through :func:`inputs_from_reference`.
+    with numpy and pass them through :func:`inputs_from_reference`. The
+    draw and the copy are the span ``rt.inputs``.
     """
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
-    return [
-        (torch.randn((dims[i], dims[i + 1]), generator=gen) / math.sqrt(dims[i + 1]))
-        .to(device=dev, dtype=dtype)
-        for i in range(len(dims) - 1)
-    ]
+    with span("rt.inputs"):
+        gen = torch.Generator().manual_seed(seed)
+        return [
+            (torch.randn((dims[i], dims[i + 1]), generator=gen) / math.sqrt(dims[i + 1]))
+            .to(device=dev, dtype=dtype)
+            for i in range(len(dims) - 1)
+        ]
 
 
 def inputs_from_reference(

@@ -45,7 +45,7 @@ import time
 import traceback
 from typing import Any, Dict, List, Optional, Union
 
-from ..configs import ARCH_NAMES, SHAPES, SKIPS, get_config
+from ..configs import ARCH_NAMES, ARCH_SKIPS, SHAPES, SKIPS, get_config
 from ..configs.shapes import ShapeSpec
 from ..models.flops import decode_flops, param_counts, prefill_flops, training_flops
 
@@ -164,7 +164,7 @@ def run_cell(
     from .specs import build_cell
 
     shape = parse_shape(shape) if isinstance(shape, str) else shape
-    skip = SKIPS.get((arch, shape.name))
+    skip = SKIPS.get((arch, shape.name)) or ARCH_SKIPS.get(arch)
     if skip:
         return {"arch": arch, "shape": shape.name, "mesh": mesh_label,
                 "status": "skipped", "reason": skip}

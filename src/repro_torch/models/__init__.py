@@ -19,7 +19,8 @@ from .attention import (
 )
 from .blocks import apply_sublayer, init_unit, init_unit_state
 from .config import FFNKind, LayerKind, ModelConfig, SublayerSpec
-from .flops import ParamCounts, decode_flops, param_counts, prefill_flops, training_flops
+from .flops import (ParamCounts, decode_flops, mla_algorithm_flops, param_counts, prefill_flops,
+                    training_flops)
 from .frontend import (
     AudioStubSpec,
     VisionStubSpec,
@@ -40,10 +41,12 @@ from .model import (
     init_lm_state,
     lm_decode_inplace,
     lm_decode_step,
+    lm_extend_inplace,
     lm_forward,
     lm_prefill,
     lm_prefill_inplace,
 )
+from .mla import mla_attention, pick_algorithm
 from .moe import apply_moe, moe_dense, moe_gather
 
 __all__ = [
@@ -79,14 +82,18 @@ __all__ = [
     "init_unit_state",
     "lm_decode_inplace",
     "lm_decode_step",
+    "lm_extend_inplace",
     "lm_forward",
     "lm_prefill",
     "lm_prefill_inplace",
     "merge_vision_embeds",
+    "mla_algorithm_flops",
+    "mla_attention",
     "moe_dense",
     "moe_gather",
     "param_counts",
     "params_from_numpy",
+    "pick_algorithm",
     "prefill_flops",
     "split_params",
     "ssd_chunked",

@@ -121,14 +121,20 @@ def attention_reference(
     causal: bool = True,
     window: Optional[int] = None,
     logit_cap: Optional[float] = None,
-    q_offset: int = 0,
+    q_offset: Union[int, torch.Tensor] = 0,
     gqa: str = "grouped",  # "grouped" | "broadcast"
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Full-scores attention. O(sq*skv) memory; correctness oracle."""
+    """Full-scores attention. O(sq*skv) memory; correctness oracle.
+
+    ``scale`` defaults to 1/sqrt(hd); ``v`` may be narrower or wider than
+    ``q`` and ``k`` (the output takes its width). ``q_offset``, the first
+    query's position, may be a 0-d tensor on the device."""
     b, sq, h, hd = q.shape
     kheads = k.shape[2]
     g = h // kheads
-    scale = 1.0 / math.sqrt(hd)
+    dv = v.shape[-1]
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     q_pos = torch.arange(sq, device=q.device) + q_offset
     kv_pos = torch.arange(k.shape[1], device=q.device)
     bias = _mask_bias(q_pos, kv_pos, causal, window)
@@ -146,7 +152,7 @@ def attention_reference(
     scores = softcap(scores, logit_cap) + bias[None, None, None]
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(b, sq, h, hd)
+    return out.reshape(b, sq, h, dv)
 
 
 def attention_chunked(
@@ -159,28 +165,31 @@ def attention_chunked(
     logit_cap: Optional[float] = None,
     q_block: int = 512,
     kv_block: int = 1024,
-    q_offset: int = 0,
+    q_offset: Union[int, torch.Tensor] = 0,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Blockwise online-softmax attention (flash formulation, plain PyTorch).
 
     Outer loop over q blocks, inner loop over kv blocks, carrying
     (m, l, acc) running max / normaliser / weighted accumulator. Memory is
     O(q_block * kv_block) per step. Masked (future) blocks are computed and
-    discarded.
+    discarded. ``scale``, the value width and ``q_offset`` as in
+    :func:`attention_reference`.
     """
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     kheads = k.shape[2]
     g = h // kheads
+    dv = v.shape[-1]
     if sq % q_block != 0 or skv % kv_block != 0:
         raise ValueError(f"seq ({sq},{skv}) not divisible by blocks ({q_block},{kv_block})")
     nq, nk = sq // q_block, skv // kv_block
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     dev = q.device
 
     qb = q.reshape(b, nq, q_block, kheads, g, hd)
     kb = k.reshape(b, nk, kv_block, kheads, hd)
-    vb = v.reshape(b, nk, kv_block, kheads, hd)
+    vb = v.reshape(b, nk, kv_block, kheads, dv)
 
     blocks = []
     for i in range(nq):
@@ -188,7 +197,7 @@ def attention_chunked(
         q_pos = torch.arange(q_block, device=dev) + i * q_block + q_offset
         m = torch.full((b, kheads, g, q_block), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((b, kheads, g, q_block), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, kheads, g, q_block, hd), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, kheads, g, q_block, dv), dtype=torch.float32, device=dev)
         for j in range(nk):
             kj, vj = kb[:, j], vb[:, j]
             kv_pos = torch.arange(kv_block, device=dev) + j * kv_block
@@ -211,9 +220,9 @@ def attention_chunked(
             acc = acc * alpha[..., None] + pv
             m = m_new
         l_safe = torch.where(l == 0.0, 1.0, l)
-        out = (acc / l_safe[..., None]).to(q.dtype)  # [b, K, g, qb, hd]
-        blocks.append(out.permute(0, 3, 1, 2, 4))   # [b, qb, K, g, hd]
-    return torch.cat(blocks, dim=1).reshape(b, sq, h, hd)
+        out = (acc / l_safe[..., None]).to(q.dtype)  # [b, K, g, qb, dv]
+        blocks.append(out.permute(0, 3, 1, 2, 4))   # [b, qb, K, g, dv]
+    return torch.cat(blocks, dim=1).reshape(b, sq, h, dv)
 
 
 def attention_local_chunked(

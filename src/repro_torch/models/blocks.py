@@ -9,6 +9,8 @@ tree (KV caches / SSM states):
 * mode="train"    — full sequence, no state.
 * mode="prefill"  — full sequence, writes K/V + final SSM states into state.
 * mode="decode"   — single token, reads+updates state.
+* mode="extend"   — new tokens against a cache that holds ``cache_len``
+  (a host integer) before them; latent attention only.
 
 The serving modes write into the state tree they are given, in place, and
 return it (the reference returns a new tree; ``lm_prefill`` and
@@ -20,7 +22,7 @@ a decode step can be captured as one CUDA graph.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -38,6 +40,7 @@ from .attention import (
 from .config import FFNKind, LayerKind, ModelConfig, SublayerSpec
 from .layers import Params, apply_mlp, apply_norm, constrain, gather_dp, init_mlp, init_norm
 from .mamba2 import apply_mamba, init_mamba
+from .mla import init_latent_cache, init_mla, mla_attention
 from .moe import apply_moe, init_moe
 
 BlockState = Optional[Dict[str, Any]]
@@ -50,7 +53,7 @@ def init_sublayer(cfg: ModelConfig, gen: torch.Generator, spec: SublayerSpec) ->
     params: Params = {}
     if spec.kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
         params["attn_norm"] = init_norm(cfg, cfg.d_model, dev)
-        params["attn"] = init_attention(cfg, gen)
+        params["attn"] = init_mla(cfg, gen) if cfg.is_mla else init_attention(cfg, gen)
         if cfg.post_sublayer_norm:
             params["attn_post_norm"] = init_norm(cfg, cfg.d_model, dev)
     else:  # MAMBA
@@ -169,10 +172,10 @@ def apply_sublayer(
     spec: SublayerSpec,
     x: torch.Tensor,
     *,
-    mode: str = "train",                 # train | prefill | decode
+    mode: str = "train",                 # train | prefill | decode | extend
     positions: Optional[torch.Tensor] = None,
     state: BlockState = None,
-    cache_len: Optional[torch.Tensor] = None,
+    cache_len: Optional[Union[int, torch.Tensor]] = None,
     causal: bool = True,
     opts=None,
 ) -> Tuple[torch.Tensor, BlockState, torch.Tensor]:
@@ -186,9 +189,18 @@ def apply_sublayer(
     params = gather_dp(params)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     local = spec.kind is LayerKind.ATTN_LOCAL
+    if mode == "extend" and not cfg.is_mla:
+        raise NotImplementedError("an extend step is written for latent attention only")
 
     # ---- mixer ----
-    if spec.kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
+    if cfg.is_mla and spec.kind is LayerKind.ATTN:
+        h = apply_norm(cfg, params["attn_norm"], x)
+        cache = state["latent"] if mode != "train" else None
+        start = 0 if mode in ("train", "prefill") else cache_len
+        x = x + mla_attention(cfg, params["attn"], h, start, cache, impl=opts.mla_impl,
+                              scores=opts.attn_impl)
+        mixer_out = None
+    elif spec.kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
         h = apply_norm(cfg, params["attn_norm"], x)
         if mode == "decode":
             o = _attn_decode(cfg, params["attn"], h, state["kv"], cache_len, local)
@@ -242,38 +254,46 @@ def apply_sublayer(
     elif cfg.parallel_block and mixer_out is not None:
         x = x + mixer_out
 
-    return x, (state if mode in ("decode", "prefill") else None), aux
+    return x, (state if mode != "train" else None), aux
 
 
 # ----------------------------------------------------------- decode state --
+
+def init_sublayer_state(
+    cfg: ModelConfig, spec: SublayerSpec, batch: int, max_len: int, dtype: torch.dtype,
+    device: DeviceLike = "cuda",
+) -> Dict[str, Any]:
+    """Decode-state tree for ONE sublayer."""
+    dev = resolve_device(device)
+    sub: Dict[str, Any] = {}
+    if cfg.is_mla and spec.kind is LayerKind.ATTN:
+        sub["latent"] = init_latent_cache(cfg, batch, max_len, dtype, dev)
+    elif spec.kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
+        # Windowed layers only ever read the trailing window: allocate a
+        # ring buffer of ~window slots instead of max_len.
+        s_len = max_len
+        if spec.kind is LayerKind.ATTN_LOCAL and cfg.sliding_window:
+            s_len = min(max_len, _round_up(cfg.sliding_window + 1, 128))
+        sub["kv"] = init_kv_cache(batch, s_len, cfg.n_kv_heads, cfg.resolved_head_dim, dtype, dev)
+    else:
+        k = cfg.ssm_conv_kernel
+        sub["ssm"] = torch.zeros(
+            (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32, device=dev
+        )
+        sub["conv"] = {
+            "x": torch.zeros((batch, k - 1, cfg.d_inner), dtype=dtype, device=dev),
+            "B": torch.zeros((batch, k - 1, cfg.ssm_groups * cfg.ssm_state), dtype=dtype, device=dev),
+            "C": torch.zeros((batch, k - 1, cfg.ssm_groups * cfg.ssm_state), dtype=dtype, device=dev),
+        }
+    return sub
+
 
 def init_unit_state(
     cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype, device: DeviceLike = "cuda",
 ) -> Dict[str, Any]:
     """Decode-state tree for ONE unit (unstacked)."""
-    dev = resolve_device(device)
-    state: Dict[str, Any] = {}
-    for i, spec in enumerate(cfg.pattern_unit()):
-        sub: Dict[str, Any] = {}
-        if spec.kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
-            # Windowed layers only ever read the trailing window: allocate a
-            # ring buffer of ~window slots instead of max_len.
-            s_len = max_len
-            if spec.kind is LayerKind.ATTN_LOCAL and cfg.sliding_window:
-                s_len = min(max_len, _round_up(cfg.sliding_window + 1, 128))
-            sub["kv"] = init_kv_cache(batch, s_len, cfg.n_kv_heads, cfg.resolved_head_dim, dtype, dev)
-        else:
-            k = cfg.ssm_conv_kernel
-            sub["ssm"] = torch.zeros(
-                (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32, device=dev
-            )
-            sub["conv"] = {
-                "x": torch.zeros((batch, k - 1, cfg.d_inner), dtype=dtype, device=dev),
-                "B": torch.zeros((batch, k - 1, cfg.ssm_groups * cfg.ssm_state), dtype=dtype, device=dev),
-                "C": torch.zeros((batch, k - 1, cfg.ssm_groups * cfg.ssm_state), dtype=dtype, device=dev),
-            }
-        state[f"sub{i}"] = sub
-    return state
+    return {f"sub{i}": init_sublayer_state(cfg, spec, batch, max_len, dtype, device)
+            for i, spec in enumerate(cfg.pattern_unit())}
 
 
 def _round_up(x: int, m: int) -> int:

@@ -1,5 +1,7 @@
 """Unified model configuration covering all assigned architecture families
-(a copy of the reference's ``models/config.py``).
+(a copy of the reference's ``models/config.py``; the latent-attention,
+YaRN, leading-dense and ungated-shared-expert fields are the port's own,
+and their defaults leave every other configuration as the reference's).
 
 One ``ModelConfig`` drives dense, MoE, hybrid (attention+Mamba interleave),
 SSM-only and encoder-decoder stacks. Layer heterogeneity is expressed as a
@@ -56,8 +58,22 @@ class ModelConfig:
     sliding_window: Optional[int] = None  # window for ATTN_LOCAL sublayers
     local_global_alternating: bool = False  # gemma2: unit = [local, global]
     rope_theta: float = 10000.0
+    # YaRN rope scaling (DeepSeek-V2); a factor of 1 is plain rope
+    rope_factor: float = 1.0
+    rope_original_max_position: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
     attn_bias: bool = False
     parallel_block: bool = False         # command-r: attn and FFN in parallel
+
+    # -- multi-head latent attention (DeepSeek-V2; kv_lora_rank 0: none) -----
+    kv_lora_rank: int = 0                # latent width c cached per token
+    qk_nope_head_dim: int = 0            # per-head query/key width without rope
+    qk_rope_head_dim: int = 0            # rope width; the rope key is shared by all heads
+    v_head_dim: int = 0
+    first_k_dense_replace: int = 0       # leading dense layers before the units
 
     # -- FFN / MoE ----------------------------------------------------------
     activation: str = "swiglu"           # swiglu | geglu | gelu
@@ -69,6 +85,7 @@ class ModelConfig:
     moe_layer_period: int = 1            # MoE every k-th sublayer
     moe_layer_offset: int = 0
     moe_norm_topk: bool = True           # renormalise top-k weights
+    moe_shared_gate: bool = True         # sigmoid gate on the shared experts
     moe_capacity_factor: float = 1.25    # gather-dispatch capacity factor
     router_aux_loss_coef: float = 0.001
 
@@ -113,6 +130,10 @@ class ModelConfig:
         return self.n_heads // self.n_kv_heads
 
     @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
@@ -137,7 +158,8 @@ class ModelConfig:
 
     # ------------------------------------------------------- pattern logic -
     def pattern_unit(self) -> List[SublayerSpec]:
-        """The repeating sublayer unit; ``n_layers % len(unit) == 0``."""
+        """The repeating sublayer unit; ``len(unit)`` divides the layers
+        after the ``first_k_dense_replace`` leading dense ones."""
         unit_len = self._unit_len()
         specs: List[SublayerSpec] = []
         for pos in range(unit_len):
@@ -155,9 +177,10 @@ class ModelConfig:
         unit = 1
         for c in candidates:
             unit = _lcm(unit, c)
-        if self.n_layers % unit != 0:
+        if (self.n_layers - self.first_k_dense_replace) % unit != 0:
             raise ValueError(
-                f"{self.name}: n_layers={self.n_layers} not divisible by "
+                f"{self.name}: n_layers={self.n_layers} less "
+                f"{self.first_k_dense_replace} leading dense not divisible by "
                 f"pattern unit {unit}"
             )
         return unit
@@ -187,7 +210,7 @@ class ModelConfig:
 
     @property
     def n_units(self) -> int:
-        return self.n_layers // self._unit_len()
+        return (self.n_layers - self.first_k_dense_replace) // self._unit_len()
 
     def replace(self, **kwargs) -> "ModelConfig":
         return dataclasses.replace(self, **kwargs)

@@ -9,6 +9,9 @@ Conventions (PaLM-appendix style):
   fwd = 4·s_ctx·H·hd (QKᵀ + PV), bwd = 2×fwd. Causal full attention uses
   s_ctx = (s+1)/2; windowed layers use min(window, ·); decode uses the
   actual cache length.
+* latent attention (MLA) counts its parameters (W_UK and W_UV among them)
+  and the decompressed form's scores, 2·s_ctx·H·(dn + dr + dv);
+  :func:`mla_algorithm_flops` counts an extend step's four algorithms.
 * SSD (Mamba-2) sequence-mix FLOPs per token: 2·Q·(g·n + h·p) intra-chunk
   + 4·h·p·n inter-chunk state ops (fwd; ×3 for training).
 
@@ -34,6 +37,8 @@ class ParamCounts:
 
 
 def _attn_params(cfg: ModelConfig) -> int:
+    if cfg.is_mla:
+        return _mla_params(cfg)
     hd = cfg.resolved_head_dim
     p = cfg.d_model * cfg.n_heads * hd          # q
     p += 2 * cfg.d_model * cfg.n_kv_heads * hd  # k, v
@@ -41,6 +46,32 @@ def _attn_params(cfg: ModelConfig) -> int:
     if cfg.qk_norm:
         p += 2 * hd
     return p
+
+
+def _mla_params(cfg: ModelConfig) -> int:
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return d * h * (dn + dr) + d * (r + dr) + r + r * h * (dn + dv) + h * dv * d
+
+
+def mla_algorithm_flops(cfg: ModelConfig, q: int, kv_len: int, batch: int = 1) -> Dict[str, float]:
+    """Analytic FLOPs of latent attention's four algorithms for ``q`` new
+    tokens against ``kv_len`` cached positions (the new ones among them),
+    the full q x kv_len score rectangle counted: the shared projections
+    (queries, latent down-projection, output), then for ``decompress`` the
+    expansion of every cached latent into per-head K and V and attention
+    at qk dn+dr, v dv; for ``absorb`` W_UK folded into the queries,
+    attention at qk r+dr, v r, and W_UV on the output. Blockwise scores
+    (``_chunked``) compute the same products."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    shared = 2.0 * q * d * h * (dn + dr) + 2.0 * q * d * (r + dr) + 2.0 * q * h * dv * d
+    decompress = (shared + 2.0 * kv_len * r * h * (dn + dv)
+                  + 2.0 * q * kv_len * h * (dn + dr) + 2.0 * q * kv_len * h * dv)
+    absorb = (shared + 2.0 * q * h * dn * r + 2.0 * q * kv_len * h * (r + dr)
+              + 2.0 * q * kv_len * h * r + 2.0 * q * h * r * dv)
+    return {"absorb": batch * absorb, "absorb_chunked": batch * absorb,
+            "decompress": batch * decompress, "decompress_chunked": batch * decompress}
 
 
 def _mlp_params(cfg: ModelConfig, d_ff: int) -> int:
@@ -53,7 +84,7 @@ def _moe_params(cfg: ModelConfig) -> Dict[str, int]:
     routed_each = _mlp_params(cfg, f)
     shared = 0
     if cfg.n_shared_experts > 0:
-        shared = _mlp_params(cfg, cfg.resolved_shared_d_ff) + cfg.d_model
+        shared = _mlp_params(cfg, cfg.resolved_shared_d_ff) + (cfg.d_model if cfg.moe_shared_gate else 0)
     router = cfg.d_model * cfg.n_experts
     total = router + cfg.n_experts * routed_each + shared
     active = router + cfg.top_k * routed_each + shared
@@ -100,6 +131,10 @@ def param_counts(cfg: ModelConfig) -> ParamCounts:
             active += mp
     total *= cfg.n_units
     active *= cfg.n_units
+    # leading dense layers: attention and a dense MLP each
+    lead = cfg.first_k_dense_replace * (_attn_params(cfg) + _mlp_params(cfg, cfg.d_ff))
+    total += lead
+    active += lead
 
     if cfg.is_encoder_decoder:
         enc = cfg.n_encoder_layers * (_attn_params(cfg) + _mlp_params(cfg, cfg.d_ff))
@@ -129,7 +164,7 @@ def _attn_layer_count(cfg: ModelConfig) -> Dict[str, int]:
         else:
             mamba += 1
     return {
-        "full": full * cfg.n_units,
+        "full": full * cfg.n_units + cfg.first_k_dense_replace,
         "local": local * cfg.n_units,
         "mamba": mamba * cfg.n_units,
     }
@@ -141,6 +176,10 @@ def _seq_mix_flops_per_token(cfg: ModelConfig, s_ctx_full: float, s_ctx_local: f
     hd = cfg.resolved_head_dim
     per_full = 4.0 * s_ctx_full * cfg.n_heads * hd
     per_local = 4.0 * s_ctx_local * cfg.n_heads * hd
+    if cfg.is_mla:  # the decompressed form's QK^T (dn + dr) and PV (dv)
+        width = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim
+        per_full = 2.0 * s_ctx_full * cfg.n_heads * width
+        per_local = 2.0 * s_ctx_local * cfg.n_heads * width
     f = counts["full"] * per_full + counts["local"] * per_local
     if counts["mamba"]:
         q = cfg.ssm_chunk

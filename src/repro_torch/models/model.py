@@ -11,9 +11,17 @@ Public entry points (pure functions over parameter trees):
 * ``init_lm_params`` / ``lm_forward``        — scoring forward
 * ``init_lm_state`` / ``lm_prefill`` / ``lm_decode_step`` — serving (the
   reference's functional form, over ``lm_prefill_inplace`` /
-  ``lm_decode_inplace``, which write the stacked state in place)
+  ``lm_decode_inplace``, which write the stacked state in place);
+  ``lm_extend_inplace`` — new tokens against a filled cache (latent
+  attention only: the port's own, as is what follows)
 * ``init_encdec_params`` / ``encdec_forward`` / ``encdec_prefill`` /
   ``encdec_decode_step``                      — whisper-style enc-dec
+
+A config with ``first_k_dense_replace`` leading dense layers (DeepSeek-V2)
+runs them before the units: their stacked parameters are ``params["lead"]``
+and their stacked decode state ``state["lead"]``, each an attention
+sublayer and a dense MLP of width ``d_ff``. Every other config has
+neither key, and its trees are the reference's.
 
 Activation checkpointing (``ForwardOptions.remat``) wraps the unit body, as
 the reference's ``jax.checkpoint`` does: ``full`` saves nothing inside a
@@ -43,8 +51,8 @@ from .attention import (
     project_qkv,
     update_kv_cache,
 )
-from .blocks import apply_sublayer, init_unit, init_unit_state
-from .config import ModelConfig
+from .blocks import apply_sublayer, init_sublayer, init_sublayer_state, init_unit, init_unit_state
+from .config import FFNKind, LayerKind, ModelConfig, SublayerSpec
 from .layers import (
     Params,
     apply_mlp,
@@ -96,6 +104,9 @@ class ForwardOptions(NamedTuple):
     attn_q_block: int = 0                     # 0 = impl default
     # Compute-time expert-weight shardings: dict {wi, wg, wo} -> sharding.
     moe_compute_shardings: Optional[Any] = None
+    # latent attention's algorithm: auto (by analytic FLOPs) | absorb |
+    # absorb_chunked | decompress | decompress_chunked
+    mla_impl: str = "auto"
 
     def check(self) -> "ForwardOptions":
         """``self``, or ValueError for an unknown remat policy."""
@@ -163,16 +174,35 @@ def init_lm_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda")
     cfg.validate()
     gen = _generator(seed, device)
     embed_v, embed_a = split_params(init_embedding(cfg, gen))
-    unit_values, unit_axes = _stacked_init(cfg.n_units, lambda: init_unit(cfg, gen))
-    norm_v, norm_a = split_params(init_norm(cfg, cfg.d_model, gen.device))
-
-    values: Params = {"embed": embed_v, "units": unit_values, "final_norm": norm_v}
-    axes: Params = {"embed": embed_a, "units": unit_axes, "final_norm": norm_a}
+    values: Params = {"embed": embed_v}
+    axes: Params = {"embed": embed_a}
+    if cfg.first_k_dense_replace:
+        values["lead"], axes["lead"] = _stacked_init(
+            cfg.first_k_dense_replace, lambda: init_sublayer(cfg, gen, LEAD_SPEC))
+    values["units"], axes["units"] = _stacked_init(cfg.n_units, lambda: init_unit(cfg, gen))
+    values["final_norm"], axes["final_norm"] = split_params(init_norm(cfg, cfg.d_model, gen.device))
 
     head_p = init_unembed(cfg, gen)
     if head_p is not None:
         values["lm_head"], axes["lm_head"] = split_params(head_p)
     return values, axes
+
+
+LEAD_SPEC = SublayerSpec(kind=LayerKind.ATTN, ffn=FFNKind.DENSE)
+
+
+def _lead(cfg: ModelConfig, params: Params, state: Optional[Dict[str, Any]] = None):
+    """(params, state or None) of each leading dense layer, in order."""
+    n = cfg.first_k_dense_replace
+    if not n:
+        return []
+    states = _unstack(state["lead"], n) if state is not None else [None] * n
+    return list(zip(_unstack(params["lead"], n), states))
+
+
+def _unit_state(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The stacked units' part of a decode state."""
+    return {k: v for k, v in state.items() if k != "lead"}
 
 
 def _unstack(tree: Params, n: int) -> List[Params]:
@@ -233,9 +263,17 @@ def lm_forward(
             aux = aux + a
         return constrain(x, opts.boundary_sharding), aux
 
+    def lead_body(x, lead_params):
+        x, _, a = apply_sublayer(cfg, lead_params, LEAD_SPEC, x, mode="train", positions=positions,
+                                 opts=opts)
+        return x, a
+
     body = _remat(unit_body, opts.remat)
     x = constrain(x, opts.boundary_sharding)
     auxes = []
+    for lead_params, _ in _lead(cfg, params):
+        x, a = _remat(lead_body, opts.remat)(x, lead_params)
+        auxes.append(a)
     for unit_params in _unstack(params["units"], cfg.n_units):
         x, a = body(x, unit_params)
         auxes.append(a)
@@ -256,7 +294,12 @@ def init_lm_state(cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike
     its own memory (the reference's ``broadcast_to`` is a value; an
     ``expand`` here would alias every unit's cache to one buffer)."""
     unit_state = init_unit_state(cfg, batch, max_len, compute_dtype(cfg), device)
-    return tree_map(lambda x: x.unsqueeze(0).repeat((cfg.n_units,) + (1,) * x.ndim), unit_state)
+    state = tree_map(lambda x: x.unsqueeze(0).repeat((cfg.n_units,) + (1,) * x.ndim), unit_state)
+    if cfg.first_k_dense_replace:
+        lead = init_sublayer_state(cfg, LEAD_SPEC, batch, max_len, compute_dtype(cfg), device)
+        state["lead"] = tree_map(
+            lambda x: x.unsqueeze(0).repeat((cfg.first_k_dense_replace,) + (1,) * x.ndim), lead)
+    return state
 
 
 def lm_prefill_inplace(
@@ -274,7 +317,11 @@ def lm_prefill_inplace(
     unit = cfg.pattern_unit()
     x = _inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units), _unstack(state, cfg.n_units)):
+    for lead_params, lead_state in _lead(cfg, params, state):
+        x, _, _ = apply_sublayer(cfg, lead_params, LEAD_SPEC, x, mode="prefill", positions=positions,
+                                 state=lead_state, opts=opts)
+    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units),
+                                       _unstack(_unit_state(state), cfg.n_units)):
         x = constrain(x, opts.interior_sharding)
         for i, spec in enumerate(unit):
             x, _, _ = apply_sublayer(cfg, unit_params[f"sub{i}"], spec, x, mode="prefill",
@@ -297,15 +344,39 @@ def lm_decode_inplace(
     [b, vocab] f32. Nothing is read back to the host (the position stays on
     the device), so the step can be captured as one CUDA graph."""
     opts.check()
+    return _step(cfg, params, state, tokens, position, "decode", opts)[:, 0, :]
+
+
+def lm_extend_inplace(
+    cfg: ModelConfig,
+    params: Params,
+    state: Dict[str, Any],
+    tokens: torch.Tensor,       # [b, s] int — the new tokens
+    cache_len: int,             # tokens already in the cache
+    opts: ForwardOptions = ForwardOptions(),
+) -> torch.Tensor:
+    """Extend a filled cache by ``s`` tokens at once (a re-asked document's
+    new question), writing into ``state`` in place; returns every new
+    token's logits [b, s, vocab] f32. Latent attention only."""
+    opts.check()
+    return _step(cfg, params, state, tokens, int(cache_len), "extend", opts)
+
+
+def _step(cfg, params, state, tokens, cache_len, mode, opts) -> torch.Tensor:
+    """Decode or extend: the new tokens through every layer against the
+    state, written in place; their logits [b, s, vocab] f32."""
     unit = cfg.pattern_unit()
     x = embed_tokens(cfg, params["embed"], tokens)
-    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units), _unstack(state, cfg.n_units)):
+    for lead_params, lead_state in _lead(cfg, params, state):
+        x, _, _ = apply_sublayer(cfg, lead_params, LEAD_SPEC, x, mode=mode, state=lead_state,
+                                 cache_len=cache_len, opts=opts)
+    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units),
+                                       _unstack(_unit_state(state), cfg.n_units)):
         for i, spec in enumerate(unit):
-            x, _, _ = apply_sublayer(cfg, unit_params[f"sub{i}"], spec, x, mode="decode",
-                                     state=unit_state[f"sub{i}"], cache_len=position, opts=opts)
+            x, _, _ = apply_sublayer(cfg, unit_params[f"sub{i}"], spec, x, mode=mode,
+                                     state=unit_state[f"sub{i}"], cache_len=cache_len, opts=opts)
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = unembed(cfg, params["embed"], params.get("lm_head"), x)
-    return logits[:, 0, :]
+    return unembed(cfg, params["embed"], params.get("lm_head"), x)
 
 
 def lm_prefill(

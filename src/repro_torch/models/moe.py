@@ -45,8 +45,9 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator) -> Params:
             "wi": normal_init(gen, (d, sf), ("embed", "ffn"), dt),
             "wg": normal_init(gen, (d, sf), ("embed", "ffn"), dt),
             "wo": normal_init(gen, (sf, d), ("ffn", "embed"), dt, out_std),
-            "gate": normal_init(gen, (d, 1), ("embed", None), dt),
         }
+        if cfg.moe_shared_gate:
+            params["shared"]["gate"] = normal_init(gen, (d, 1), ("embed", None), dt)
     return params
 
 
@@ -271,6 +272,8 @@ def _shared_expert(cfg: ModelConfig, sp: Params, x: torch.Tensor) -> torch.Tenso
     h = x @ sp["wi"].to(x.dtype)
     g = x @ sp["wg"].to(x.dtype)
     y = (F.silu(g) * h) @ sp["wo"].to(x.dtype)
+    if not cfg.moe_shared_gate:
+        return y
     gate = torch.sigmoid(x.float() @ sp["gate"].float()).to(x.dtype)
     return y * gate
 

@@ -17,7 +17,21 @@ device's activity:
 - ``rt.rank.step``: one Procedure-4 iteration
   (:meth:`repro_torch.core.session.MeasurementSession.step`);
 - ``rt.rank.update``: its host work after the batch (store, shuffle, mean
-  ranks, convergence norm, record).
+  ranks, convergence norm, record);
+- ``rt.inputs``: a chain instance's matrices drawn on the host and copied
+  to the device (:func:`repro_torch.expressions.algorithms.make_chain_inputs`);
+- ``rt.mla.cache``: latent attention's new latent rows written into its
+  cache; ``rt.mla.expand``: the cached latents expanded into per-head K and
+  V (the decompressed order); ``rt.mla.absorb``: W_UK folded into the
+  queries, and W_UV applied to the latent output (the absorbed order, two
+  spans a call) (:func:`repro_torch.models.mla.mla_attention`);
+- ``rt.mla.pick.absorb`` or ``rt.mla.pick.decompress``: zero-length, one
+  per call, at the dispatcher that chose the order
+  (:func:`repro_torch.models.mla.pick_algorithm`): counters.
+
+Spans fire where the host runs the program's Python: eagerly, in a
+capture's warm-up and during the capture itself, never in a CUDA graph's
+replay.
 
 Each span is a host event of kind ``cpu_op``; unlike ``record_function``'s
 user annotations, the profiler never projects it onto the device's

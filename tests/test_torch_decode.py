@@ -137,7 +137,7 @@ def test_sliding_window_decode_ring_buffer():
 
     # a ring that wraps: 128 slots (window 8 rounded up), prefill of 131
     # tokens (two segments), decode across the wrap
-    rc = R.ModelConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+    rc = R.ModelConfig(**{f: getattr(cfg, f) for f in R.ModelConfig.__dataclass_fields__})
     rp, _ = R.init_lm_params(rc, jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, rp), "cpu")
     tok = _tokens(cfg, (b, 140))

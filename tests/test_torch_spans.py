@@ -1,8 +1,8 @@
 """The program's ``rt.`` spans (``repro_torch/spans.py``).
 
 On the CPU: one chain verdict and one ``rank_site`` under
-``torch.profiler`` carry the ranking path's spans, nested as the program
-runs them, one ``rt.rank.step`` a Procedure-4 iteration; every span is a
+``torch.profiler`` carry the ranking path's spans (and the chain its
+input draw's), nested as the program runs them, one ``rt.rank.step`` a Procedure-4 iteration; every span is a
 ``cpu_op`` host event, never a user annotation (which the profiler
 projects onto the device's timeline); with no profiler running a span is
 a shared no-op that builds nothing.
@@ -26,6 +26,8 @@ from repro_torch.expressions import (
 )
 
 RANKING_SPANS = {"rt.build", "rt.measure", "rt.rank.step", "rt.rank.update"}
+#: spans a path opens besides the ranking's: the chain draws its matrices
+INPUT_SPANS = {"chain": {"rt.inputs"}, "site": set()}
 
 
 def chain_verdict(device="cpu"):
@@ -62,7 +64,8 @@ def traced():
 def test_ranking_path_carries_its_spans_nested(traced, path):
     events, result = traced[path]
     names = {e.name() for e in events}
-    assert RANKING_SPANS <= names and names <= RANKING_SPANS | {"rt.graph.capture"}
+    expected = RANKING_SPANS | INPUT_SPANS[path]
+    assert expected <= names and names <= expected | {"rt.graph.capture"}
     steps = [(e.start_ns(), e.end_ns()) for e in events if e.name() == "rt.rank.step"]
     updates = [(e.start_ns(), e.end_ns()) for e in events if e.name() == "rt.rank.update"]
     assert len(steps) == len(result.history) >= 1
