@@ -245,6 +245,9 @@ SWEEP_SHAPES = ((256, 256, 256), (300, 200, 450), (64, 512, 128), (128, 128, 102
 PROPERTY_SHAPES = tuple((17 * i, 23 * j, 13 * k) for i, j, k in itertools.product((1, 2, 3), repeat=3))
 TIMED_SHAPES = ((1000, 1000, 1000), (1024, 1024, 1024), (4096, 4096, 4096))
 BF16_TIMED_SHAPES = ((1000, 1000, 1000), (4096, 4096, 4096))
+#: the first GEMM of gemm-chain-rank's first pool chain (1851, 1637, 1511, ...):
+#: rows off 16-byte boundaries, so the shifted copy mode (phases 3 and 4)
+SHIFT_SHAPE = (1851, 1637, 1511)
 HOST_LAUNCHES = 1000  # launches of a 64^3 GEMM timed on the host clock (phase 4)
 INSTANCES = ("anomaly_331", "fig3_75", "instance_A", "instance_B")
 # Phase 11's kernel lane (the README's GPU lane): every other flag at its
@@ -324,16 +327,21 @@ MLA_F32_SHAPE = (4096, 256, 8)         # phase 18's float32 pass (62.8 GB of wei
 MLA_F32_TOL = 1e-4                     # its logits against the f32 reference: max |d| / max |ref|
 TOL = {"float32": 2e-4, "bfloat16": 2e-2, "chain": 5e-4}
 
-# Planted faults in the GEMM that the 1000^3 f32 comparison at the 64^3 tile
-# must reject (phase 3): name, the text of csrc/gemm.cu (it must occur there
-# exactly once) and its replacement.
+# Planted faults in the GEMM that the f32 comparisons at the 64^3 tile must
+# reject (phase 3), at 1000^3 (copy mode 16) and at SHIFT_SHAPE (the shifted
+# mode): name, the text of csrc/gemm.cu (it must occur there exactly once)
+# and its replacement. A's row shift dropped touches the shifted mode alone,
+# so 1000^3 only records it.
 GEMM_FAULTS = (
     ("lo forced to 0 (1xTF32)", "  lo = round_tf32(x - __uint_as_float(hi));\n", "  lo = 0u;\n"),
     ("cross term a_hi*b_lo dropped", "        mma_tf32(d, ahi, blo[j]);\n",
      "        // a_hi*b_lo dropped\n"),
     ("last K stage skipped", "  for (int kt = 0; kt < k_tiles; ++kt) {",
      "  for (int kt = 0; kt < k_tiles - 1; ++kt) {"),
+    ("A's row shift dropped", "stage_products<L, BK>(acc, sa + sha, sa + BM * L::kPitchA + shb,",
+     "stage_products<L, BK>(acc, sa, sa + BM * L::kPitchA + shb,"),
 )
+SHIFT_ONLY_FAULTS = ("A's row shift dropped",)
 
 # Flash attention: the reference's tolerances (tests/test_kernels.py).
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
@@ -688,29 +696,33 @@ def reset_gemm_counts(kmod):
 
 def gemm_sass_check(kmod, lib_path, spills):
     """Phase 2's SASS check: every GEMM instantiation (each tile, dtype pair
-    and copy width) runs its products on HMMA (mma.sync), loads by LDGSTS
+    and copy mode: 16 and 4 for the four pairs, the shifted mode for the two
+    f32 ones) runs its products on HMMA (mma.sync), loads by LDGSTS
     (cp.async) and touches no local memory; ptxas reports no spill."""
     sass = sass_report(lib_path)
     gemm = {k_: c for k_, c in sass.items() if k_.startswith("gemm_kernel")}
-    want = len(kmod.SUPPORTED_TILES) * 4 * len(kmod.COPY_WIDTHS)
+    want = len(kmod.SUPPORTED_TILES) * (4 * (len(kmod.COPY_WIDTHS) - 1) + 2)
+    shifted = [k_ for k_ in gemm if k_.endswith("Lin16E>")]  # gemm.cu's kShift16, -16
     bad = [k_ for k_, c in gemm.items() if not (c["HMMA"] and c["LDGSTS"]) or c["LDL"] or c["STL"]]
     span = {op: sorted(c[op] for c in gemm.values()) or [0] for op in ("HMMA", "LDGSTS")}
-    log(f"[2 sass] gemm: {len(gemm)} instantiations (want {want}); "
+    log(f"[2 sass] gemm: {len(gemm)} instantiations (want {want}), {len(shifted)} in the shifted mode "
+        f"(want {2 * len(kmod.SUPPORTED_TILES)}); "
         + ", ".join(f"{op} {v[0]}-{v[-1]}" for op, v in span.items())
         + f", LDL/STL {sum(c['LDL'] + c['STL'] for c in gemm.values())}")
-    if len(gemm) != want or bad:
+    if len(gemm) != want or len(shifted) != 2 * len(kmod.SUPPORTED_TILES) or bad:
         sys.exit(f"chip_smoke: GEMM instantiations without HMMA and LDGSTS, or with local memory: "
-                 f"{bad} ({len(gemm)} of {want} found)")
+                 f"{bad} ({len(gemm)} of {want} found, {len(shifted)} shifted)")
     if spills:
         sys.exit(f"chip_smoke: GEMM instantiations spill: {spills}")
     return gemm
 
 
-def gemm_power(torch, kmod, fault_libs, a, b, ref):
-    """The power of the 1000^3 f32 comparison at the 64^3 tile: the share of
-    its tolerance that the kernel and each planted fault use. Returns the
-    shares and the faults it did not reject. The faults' launches are not
-    counted."""
+def gemm_power(torch, kmod, fault_libs, a, b, ref, shifted=False):
+    """The power of an f32 comparison at the 64^3 tile (1000^3 in copy mode
+    16, or SHIFT_SHAPE in the shifted mode): the share of its tolerance that
+    the kernel and each planted fault use. Returns the shares and the faults
+    it did not reject (SHIFT_ONLY_FAULTS only where ``shifted``). The
+    faults' launches are not counted."""
     tol = TOL["float32"]
 
     def share():
@@ -723,7 +735,8 @@ def gemm_power(torch, kmod, fault_libs, a, b, ref):
         shares[name] = run_with(kmod, kmod.matmul_kernel, kmod.bind(fault_libs[name]), share)
     torch.cuda.synchronize()
     vars(kmod.matmul_kernel).update(saved)
-    return shares, [name for name, _, _ in GEMM_FAULTS if shares[name] <= 1.0]
+    return shares, [name for name, _, _ in GEMM_FAULTS
+                    if shares[name] <= 1.0 and (shifted or name not in SHIFT_ONLY_FAULTS)]
 
 
 def mma_rates(torch, lib_path):
@@ -3316,6 +3329,7 @@ def main():
         by_tile.hold(f"{'x'.join(map(str, tile))} {pair}", out, ref, tol, what)
 
     reset_gemm_counts(kmod)
+    shift_bitwise = {"launches": 0, "unequal": []}  # the shifted mode against the 4-byte mode
     for tile in kmod.SUPPORTED_TILES:
         bm, bn, bk = tile
         shapes = SWEEP_SHAPES + (PROPERTY_SHAPES if tile == (16, 16, 16) else ())
@@ -3327,6 +3341,12 @@ def main():
             for out_dtype in (None, torch.bfloat16 if dtype == torch.float32 else torch.float32):
                 out = kmod.matmul_kernel(a, b, block_m=bm, block_n=bn, block_k=bk,
                                          out_dtype=out_dtype)
+                if kmod.copy_mode(a, b, out) == kmod.SHIFT:  # the 4-byte mode on the same tensors
+                    four = torch.empty_like(out)
+                    kmod.launch(a, b, four, tile, 4)
+                    shift_bitwise["launches"] += 1
+                    if not torch.equal(out.view(torch.int16), four.view(torch.int16)):
+                        shift_bitwise["unequal"].append(f"tile {tile} {out.dtype} {(m, k, n)}")
                 torch.cuda.synchronize()
                 tol = TOL[kind] if out_dtype is None else TOL["bfloat16"]
                 out_kind = kind if out_dtype is None else str(out_dtype).split(".")[1]
@@ -3350,9 +3370,13 @@ def main():
         + ", ".join(f"{k_} {x:.4g}" for k_, x in by_tile.used.items()))
     fail_on("phase 3")
     by_copy = dict(kmod.matmul_kernel.launches_by_copy)
-    log(f"[3 kernel vs plain] GEMM launches by copy width (bytes): {by_copy}")
+    log(f"[3 kernel vs plain] GEMM launches by copy mode: {by_copy}")
     if not all(by_copy.values()):
-        sys.exit(f"chip_smoke: phase 3 did not launch every copy width: {by_copy}")
+        sys.exit(f"chip_smoke: phase 3 did not launch every copy mode: {by_copy}")
+    log(f"[3 shift] the shifted mode against the 4-byte mode on the same tensors: "
+        f"{shift_bitwise['launches']} launches, {len(shift_bitwise['unequal'])} not bitwise equal")
+    if not shift_bitwise["launches"] or shift_bitwise["unequal"]:
+        sys.exit(f"chip_smoke: the shifted mode is not bitwise the 4-byte mode: {shift_bitwise}")
 
     # The power of the f32 comparison: builds with planted faults must fail it.
     gemm_fault_libs = {name: future.result() for name, future in gemm_fault_builds.items()}
@@ -3363,6 +3387,16 @@ def main():
         + ", ".join(f"{n_}: {x:.4g}" for n_, x in gemm_shares.items()))
     if missed:
         sys.exit(f"chip_smoke: the 1000^3 f32 GEMM comparison does not reject {missed}")
+    m, k, n = SHIFT_SHAPE
+    a_s = torch.randn(m, k, generator=gen, device=dev) / math.sqrt(k)
+    b_s = torch.randn(k, n, generator=gen, device=dev)
+    shift_mode = kmod.copy_mode(a_s, b_s, torch.empty(m, n, device=dev))
+    shift_shares, missed = gemm_power(torch, kmod, gemm_fault_libs, a_s, b_s, matmul_ref(a_s, b_s),
+                                      shifted=True)
+    log(f"[3 power] {m}x{k}x{n} f32 (copy mode {shift_mode}), tile 64^3: share of the f32 tolerance used by "
+        + ", ".join(f"{n_}: {x:.4g}" for n_, x in shift_shares.items()))
+    if shift_mode != kmod.SHIFT or missed:
+        sys.exit(f"chip_smoke: the {SHIFT_SHAPE} f32 GEMM comparison (mode {shift_mode}) does not reject {missed}")
     # A NaN made on the card in one element of A: row 137 of C, and only that
     # row, is NaN in the plain version, at every tile; the build without the
     # split's NaN guard is shown beside it.
@@ -3382,7 +3416,8 @@ def main():
         f"{not gemm_checks.failures}; the build without the guard, tile 64^3: NaN at {gemm_nan['unguarded_nan']}")
     fail_on("phase 3, NaN case")
     details["gemm_phase3"] = {"tolerance_used_by_tile": by_tile.used, "max_abs_err_by_tile": by_tile.errs,
-                              "launches_by_copy": by_copy, "power": gemm_shares, "nan_case": gemm_nan}
+                              "launches_by_copy": by_copy, "power": gemm_shares, "power_shifted": shift_shares,
+                              "shift_bitwise": shift_bitwise, "nan_case": gemm_nan}
 
     mark("3 kernel vs plain")
     # ------------------------------------------------------------ 4. time --
@@ -3436,6 +3471,26 @@ def main():
                         f"{100 * row['share_of_bound'][t]:.1f} % of the bound)"
                         for t, ms in row["kernel_ms"].items()))
     details["timings"] = timings
+    # The pool's first GEMM, its rows off 16-byte boundaries, at the 64^3
+    # tile: the shifted mode against the 4-byte mode, beside 1000^3 aligned.
+    m, k, n = SHIFT_SHAPE
+    a = torch.randn(m, k, generator=gen, device=dev) / math.sqrt(k)
+    b = torch.randn(k, n, generator=gen, device=dev)
+    c = torch.empty(m, n, device=dev)
+    shift_row = {"shape": [m, k, n], "mode": kmod.copy_mode(a, b, c),
+                 "bound_ms": gemm_bound(m, k, n, 4, 4, peak["tf32_flops"], peak, products=3)[0],
+                 "library_ms": cuda_ms(torch, lambda: torch.matmul(a, b), 50), "kernel_ms": {}, "tflops": {},
+                 "aligned_1000_ms": timings[0]["kernel_ms"]["64x64x64"]}
+    for mode in (kmod.SHIFT, 4):
+        shift_row["kernel_ms"][str(mode)] = cuda_ms(torch, lambda: kmod.launch(a, b, c, (64, 64, 64), mode), 50)
+        shift_row["tflops"][str(mode)] = 2.0 * m * k * n / shift_row["kernel_ms"][str(mode)] * 1e-9
+    details["shift_timing"] = shift_row
+    log(f"[4 shift] {m}x{k}x{n} f32, tile 64^3 (bound {shift_row['bound_ms']:.4f} ms, torch.matmul "
+        f"{shift_row['library_ms']:.4f} ms): "
+        + ", ".join(f"mode {md} {ms:.4f} ms ({shift_row['tflops'][md]:.1f} TFLOP/s)"
+                    for md, ms in shift_row["kernel_ms"].items())
+        + f"; 1000^3 aligned {shift_row['aligned_1000_ms']:.4f} ms "
+          f"({2e-9 * 1000 ** 3 / shift_row['aligned_1000_ms']:.1f} TFLOP/s)")
     # What the split's NaN guard costs: the same build without it, in turns.
     a = torch.randn(1000, 1000, generator=gen, device=dev) / math.sqrt(1000)
     b = torch.randn(1000, 1000, generator=gen, device=dev)

@@ -53,18 +53,43 @@
 //   Rows are padded so fragment reads are free of bank conflicts: f32 A by
 //   4 and B by 8 floats; bf16 rows to an odd number of 16-byte lines, as
 //   ldmatrix wants.
-// * Copy width by layout (the wrapper's copy_bytes): 16-byte cp.async.cg
-//   where the bases and row strides of A, B and C are multiples of 16
-//   bytes; else 4-byte cp.async.ca, element by element for f32. A bf16 row
-//   that is not 4-byte aligned (an odd width) is read with plain loads.
+// * Copy mode by layout (the wrapper's copy_mode, repro_gemm's copy
+//   argument): 16, 16-byte cp.async.cg where the bases and row strides of
+//   A, B and C are multiples of 16 bytes; kShift16, 16-byte copies of f32
+//   rows at any 4-byte alignment, where the bases of A and B are multiples
+//   of 16 bytes and a row stride is not (load_tile_shifted); else 4, 4-byte
+//   cp.async.ca, element by element for f32. A bf16 row that is not 4-byte
+//   aligned (an odd width) is read with plain loads; bf16 has no kShift16
+//   (ldmatrix wants its shared rows on 16-byte boundaries).
+// * kShift16 copies each row from the 16-byte boundary at or below its
+//   first element, COLS/4 + 1 chunks where the row is off a boundary, so
+//   element j of a tile row lands at stage[row * pitch + sh + j], sh being
+//   the row's shift, its first element's place in its 16-byte line (0-3;
+//   the pitches above leave the room). Every tile origin is a multiple of 4
+//   elements, so sh depends only on the row's index mod 4, and a thread's
+//   fragment rows all have one index mod 4 (g for A, t for B): each thread
+//   adds its two shifts to its fragment addresses once, before the loop.
+//   A fragment therefore reads what the 4-byte path's reads, and the output
+//   is bitwise the 4-byte path's (the same single-element epilogue). Rows
+//   of differing shifts cannot tile the 32 banks, so a fragment read takes
+//   two wavefronts there, at most: about 1 % of the time at 64^3.
 // * Ragged edges: src-size zero-fills the elements past m, n or k, so every
 //   fragment of a partial tile, lo parts included, reads 0; the epilogue
 //   stores only what lies inside C (pairs on the 16-byte path, single
-//   elements on the 4-byte path). Any tile is valid for any shape.
+//   elements on the others). Any tile is valid for any shape.
 //
 // Where the trouble lay: a 16-byte cp.async at an address that is not
 // 16-byte aligned faults at run time (the paper's anomaly_331 has rows of
-// 3416 and 1352 bytes, fig3_75 of 300); without the explicit rounding,
+// 3416 and 1352 bytes, fig3_75 of 300), and the 4-byte path that took such
+// rows issued four times the copies, each with its own address and
+// predicate, in an f32 loop bound by issue (1.36x the 16-byte path's time
+// at 64^3): so kShift16 aligns the copies, not the rows, and takes 1.22x
+// less time than the 4-byte path on unaligned rows, still 1.15x the 16-byte
+// path's on aligned neighbours (the rows' last chunks about 6 %, whose
+// every placement tried cost as much or more; unaligned rows themselves
+// 5 %; the mode's code 2-4 %); its chunk's head before a row's first
+// element lies in the row before it, which is why the base must be aligned
+// (row 0 has no row before it); without the explicit rounding,
 // hi + lo is not x; the K tail (k = 8 against BK = 64) is a partial last
 // stage whose zero fill must cover whole fragments; 128 x 128 must hold 64
 // accumulators and the hi/lo fragments without spilling (the loader keeps
@@ -78,7 +103,7 @@
 // C interface for ctypes: repro_gemm(...) launches on the given stream and
 // returns cudaGetLastError() as an int (0 = launched), -1 for a tile that
 // is not instantiated, -2 for a dtype pair it does not take and -3 for a
-// copy width other than 16 or 4.
+// copy mode other than 16, 4 or kShift16 (-16; f32 inputs only).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,6 +114,10 @@
 namespace {
 
 enum DType { kF32 = 0, kBF16 = 1 };
+
+// The copy mode of 16-byte copies at a row shift (f32 only); the others are
+// the copy's bytes, 16 or 4.
+constexpr int kShift16 = -16;
 
 // Warps along M and N, and stages of the ring, per instantiated tile.
 template <int BM, int BN, int BK>
@@ -179,6 +208,62 @@ __device__ __forceinline__ void load_tile(T* s, const T* __restrict__ g, int64_t
         const uint32_t hi = valid > 1 ? h[1] : 0u;
         *reinterpret_cast<uint32_t*>(dst) = lo | (hi << 16);
       }
+    }
+    r += kRowStep;
+    src += kRowStep * ld;
+    dst += kRowStep * P;
+  }
+}
+
+// The shift of an f32 row that starts at p: its first element's place in its
+// 16-byte line, (address / 4) mod 4.
+__device__ __forceinline__ int row_shift(const float* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) >> 2) & 3;
+}
+
+// load_tile for f32 rows at any 4-byte alignment (kShift16): each row in
+// 16-byte chunks from the boundary at or below its first element, so
+// element j of tile row r lands at s[r * P + sh + j], sh = row_shift of the
+// row. The COLS / 4 chunks every row has are mapped as the 16-byte path maps
+// them: a thread copies one column of chunks down rows r, r + kRowStep, ...,
+// and kRowStep is a multiple of 4 rows, so sh is one value for all of them.
+// A row off a boundary has one chunk more, holding its last sh elements:
+// the thread in column q copies it for its q-th row, from the addresses it
+// already holds (kThreads >= ROWS, so there are columns enough). A chunk is
+// clipped at cmax and zero-filled after it, rows at or past rmax copy 0
+// bytes, so the fragments' reads see zeros past the edges as on the other
+// paths. A chunk's head before the row's first element lies in the same row
+// or the row before it (g, row 0 of the matrix, is on a boundary), and no
+// chunk reads past element cmax - 1 of its row.
+template <int ROWS, int COLS, int P, int kThreads>
+__device__ __forceinline__ void load_tile_shifted(float* s, const float* __restrict__ g,
+                                                  int64_t ld, int r0, int c0, int rmax, int cmax,
+                                                  int tid) {
+  constexpr int kPerRow = COLS / 4;                  // chunks every row has
+  constexpr int kRowStep = kThreads / kPerRow;       // rows per sweep
+  constexpr int kSweeps = (ROWS + kRowStep - 1) / kRowStep;
+  static_assert(COLS % 4 == 0 && kThreads % kPerRow == 0 && kRowStep % 4 == 0,
+                "copies do not tile the block");
+  static_assert(kSweeps <= kPerRow && P >= COLS + 4, "no thread or no room for a row's last chunk");
+  const int width = min(cmax - c0, COLS);  // the row's elements in the tile, > 0
+  const int q = tid % kPerRow;
+  const int c = q * 4;
+  int r = tid / kPerRow;
+  const float* row = g + static_cast<int64_t>(r0 + r) * ld + c0;
+  const int sh = row_shift(row);
+  const int bytes = 4 * min(max(sh + width - c, 0), 4);
+  const float* src = row - sh + c;
+  float* dst = s + r * P + c;
+  if (sh > 0 && q < kSweeps && (ROWS % kRowStep == 0 || r + q * kRowStep < ROWS)) {
+    const int valid = r0 + r + q * kRowStep < rmax ? 4 * max(sh + width - COLS, 0) : 0;
+    cp_async_16(dst + q * kRowStep * P + COLS - c,
+                valid > 0 ? src + q * kRowStep * ld + COLS - c : g, valid);
+  }
+#pragma unroll (kSweeps <= 8 ? kSweeps : 4)
+  for (int it = 0; it < kSweeps; ++it) {
+    if (ROWS % kRowStep == 0 || r < ROWS) {
+      const int valid = r0 + r < rmax ? bytes : 0;
+      cp_async_16(dst, valid > 0 ? src : g, valid);
     }
     r += kRowStep;
     src += kRowStep * ld;
@@ -394,12 +479,14 @@ __device__ __forceinline__ void store_row(TOut* __restrict__ c, int64_t ldc, int
 // --------------------------------------------------------------- kernel --
 // One CTA an SM is all the bounds ask: without it ptxas held 128 x 128 x 8
 // f32 to 128 registers and spilled; with it no instantiation spills.
-template <int BM, int BN, int BK, typename TIn, typename TOut, int kCopyBytes>
+// kCopy: the copy mode, 16, 4 or kShift16.
+template <int BM, int BN, int BK, typename TIn, typename TOut, int kCopy>
 __global__ void __launch_bounds__(Layout<BM, BN, BK, TIn>::kThreads, 1)
 gemm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __restrict__ c,
             int m, int n, int k, int64_t lda, int64_t ldb, int64_t ldc) {
   using L = Layout<BM, BN, BK, TIn>;
   constexpr int S = L::kStages;
+  static_assert(kCopy != kShift16 || L::kF32In, "kShift16 is an f32 mode");
   extern __shared__ __align__(16) unsigned char smem[];
   TIn* const ring = reinterpret_cast<TIn*>(smem);  // stage s: A at s * kStageElems, then B
 
@@ -413,9 +500,21 @@ gemm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __restri
   auto load_stage = [&](int stage, int kt) {
     TIn* sa = ring + stage * L::kStageElems;
     TIn* sb = sa + BM * L::kPitchA;
-    load_tile<BM, BK, L::kPitchA, kCopyBytes, L::kThreads>(sa, a, lda, row0, kt * BK, m, k, tid);
-    load_tile<BK, BN, L::kPitchB, kCopyBytes, L::kThreads>(sb, b, ldb, kt * BK, col0, k, n, tid);
+    if constexpr (kCopy == kShift16) {
+      load_tile_shifted<BM, BK, L::kPitchA, L::kThreads>(sa, a, lda, row0, kt * BK, m, k, tid);
+      load_tile_shifted<BK, BN, L::kPitchB, L::kThreads>(sb, b, ldb, kt * BK, col0, k, n, tid);
+    } else {
+      load_tile<BM, BK, L::kPitchA, kCopy, L::kThreads>(sa, a, lda, row0, kt * BK, m, k, tid);
+      load_tile<BK, BN, L::kPitchB, kCopy, L::kThreads>(sb, b, ldb, kt * BK, col0, k, n, tid);
+    }
   };
+  // The shifts of this thread's fragment rows, A's (rows = g mod 4) and B's
+  // (rows = t mod 4); 0 on the other paths.
+  int sha = 0, shb = 0;
+  if constexpr (kCopy == kShift16) {
+    sha = row_shift(a + static_cast<int64_t>(row0 + (lane >> 2)) * lda);
+    shb = row_shift(b + static_cast<int64_t>(lane & 3) * ldb);
+  }
 
   float acc[L::MT][L::NT][4];
 #pragma unroll
@@ -440,7 +539,7 @@ gemm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __restri
     if (next < k_tiles) load_stage(next % S, next);
     cp_async_commit();
     const TIn* sa = ring + (kt % S) * L::kStageElems;
-    stage_products<L, BK>(acc, sa, sa + BM * L::kPitchA, wm0, wn0, lane);
+    stage_products<L, BK>(acc, sa + sha, sa + BM * L::kPitchA + shb, wm0, wn0, lane);
   }
   cp_async_wait<0>();
 
@@ -451,18 +550,18 @@ gemm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __restri
     for (int j = 0; j < L::NT; ++j) {
       const int r = row0 + wm0 + i * 16 + g;
       const int col = col0 + wn0 + j * 8 + 2 * t;
-      store_row<kCopyBytes == 16>(c, ldc, m, n, r, col, acc[i][j][0], acc[i][j][1]);
-      store_row<kCopyBytes == 16>(c, ldc, m, n, r + 8, col, acc[i][j][2], acc[i][j][3]);
+      store_row<kCopy == 16>(c, ldc, m, n, r, col, acc[i][j][0], acc[i][j][1]);
+      store_row<kCopy == 16>(c, ldc, m, n, r + 8, col, acc[i][j][2], acc[i][j][3]);
     }
   }
 }
 
 // --------------------------------------------------------------- launch --
-template <int BM, int BN, int BK, typename TIn, typename TOut, int kCopyBytes>
+template <int BM, int BN, int BK, typename TIn, typename TOut, int kCopy>
 int launch(const void* a, const void* b, void* c, int m, int n, int k, int64_t lda, int64_t ldb,
            int64_t ldc, cudaStream_t stream) {
   using L = Layout<BM, BN, BK, TIn>;
-  auto kernel = gemm_kernel<BM, BN, BK, TIn, TOut, kCopyBytes>;
+  auto kernel = gemm_kernel<BM, BN, BK, TIn, TOut, kCopy>;
   if constexpr (L::kSmemBytes > 48 * 1024) {
     // Above 48 KB a launch is refused until the limit is raised, once per
     // device (up to 64) and instantiation.
@@ -492,6 +591,10 @@ int launch_width(int copy_bytes, const void* a, const void* b, void* c, int m, i
     return launch<BM, BN, BK, TIn, TOut, 16>(a, b, c, m, n, k, lda, ldb, ldc, s);
   if (copy_bytes == 4)
     return launch<BM, BN, BK, TIn, TOut, 4>(a, b, c, m, n, k, lda, ldb, ldc, s);
+  if constexpr (sizeof(TIn) == 4) {
+    if (copy_bytes == kShift16)
+      return launch<BM, BN, BK, TIn, TOut, kShift16>(a, b, c, m, n, k, lda, ldb, ldc, s);
+  }
   return -3;
 }
 

@@ -8,7 +8,7 @@ shared-memory stages with ``cp.async`` and runs its products on the tensor
 cores with ``mma.sync``: f32 inputs as 3xTF32 (each operand split into two
 TF32 halves, three products), bf16 inputs directly; its source note gives
 the bound and the design. This module builds it, binds it with ``ctypes``,
-picks its copy width (:func:`copy_bytes`) and checks everything the kernel
+picks its copy mode (:func:`copy_mode`) and checks everything the kernel
 does not take.
 
 Tile shapes stay parameters because ``matmul_blocks_site`` ranks them, but
@@ -31,7 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -86,8 +86,15 @@ def _library() -> ctypes.CDLL:
     return bind(build())
 
 
-#: Copy widths of the kernel's ``cp.async`` loads, in bytes (both instantiated).
-COPY_WIDTHS: Tuple[int, ...] = (16, 4)
+#: The kernel's 16-byte copies of f32 rows at any 4-byte alignment: each row
+#: from the 16-byte boundary at or below its first element (csrc/gemm.cu).
+SHIFT = "16-shift"
+#: The kernel's copy modes, each a key of ``matmul_kernel.launches_by_copy``:
+#: 16-byte ``cp.async`` where every row starts on a 16-byte boundary,
+#: :data:`SHIFT` (f32 inputs only) and 4-byte copies.
+COPY_WIDTHS: Tuple[Union[int, str], ...] = (16, SHIFT, 4)
+#: ``repro_gemm``'s sixth argument for each mode (gemm.cu's kShift16 is -16).
+_COPY_CODE = {16: 16, SHIFT: -16, 4: 4}
 
 
 def copy_bytes(*tensors: torch.Tensor) -> int:
@@ -100,6 +107,21 @@ def copy_bytes(*tensors: torch.Tensor) -> int:
         if t.data_ptr() % 16 or (t.stride(0) * t.element_size()) % 16:
             return 4
     return 16
+
+
+def copy_mode(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> Union[int, str]:
+    """The launch's copy mode (a key of :data:`COPY_WIDTHS`) for the
+    row-major A, B and C: 16 where :func:`copy_bytes` gives 16;
+    :data:`SHIFT` for f32 inputs whose bases lie on a 16-byte boundary,
+    whatever their row strides (a chunk's head before a row's first element
+    then lies in the row before it, and row 0 has none; C is stored element
+    by element); else 4, as for a base off a boundary or bf16 rows that are.
+    Pure: the CPU tests call it on CPU tensors."""
+    if copy_bytes(a, b, c) == 16:
+        return 16
+    if a.dtype == torch.float32 and not (a.data_ptr() % 16 or b.data_ptr() % 16):
+        return SHIFT
+    return 4
 
 
 def check_tile(block_m: int, block_n: int, block_k: int) -> None:
@@ -127,7 +149,7 @@ def matmul_kernel(
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version :func:`~repro_torch.kernels.matmul.ref.matmul_ref`.
     ``matmul_kernel.launches`` counts kernel launches and
-    ``matmul_kernel.launches_by_copy`` the same per copy width; a launch
+    ``matmul_kernel.launches_by_copy`` the same per copy mode; a launch
     captured into a CUDA graph counts at each replay
     (:func:`repro_torch.graphs.count_launch`).
     """
@@ -152,9 +174,23 @@ def matmul_kernel(
         return c
     if -(-m // block_m) > _MAX_GRID_Y:
         raise ValueError(f"m={m} needs more than {_MAX_GRID_Y} row tiles of {block_m}")
-    width = copy_bytes(a, b, c)
+    mode = copy_mode(a, b, c)
+    launch(a, b, c, (block_m, block_n, block_k), mode)
+    count_launch(functools.partial(_count, mode))
+    return c
+
+
+def launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, tile: Tuple[int, int, int],
+           mode: Union[int, str]) -> None:
+    """One launch of the kernel, ``c = a @ b``, on PyTorch's current stream
+    of their device, in copy mode ``mode``; raises if it fails. Checks and
+    counts nothing: :func:`matmul_kernel` checks, picks the mode by
+    :func:`copy_mode` and counts; the card's tests and ``chip_smoke.py``
+    launch each mode on the same tensors to compare them."""
+    m, k = a.shape
+    n = b.shape[1]
     index = a.device.index
-    args = (block_m, block_n, block_k, _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype], width,
+    args = (*tile, _DTYPE_CODE[a.dtype], _DTYPE_CODE[c.dtype], _COPY_CODE[mode],
             a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
             a.stride(0), b.stride(0), c.stride(0),
             torch._C._cuda_getCurrentRawStream(index))  # PyTorch's current stream there
@@ -164,16 +200,13 @@ def matmul_kernel(
         with torch.cuda.device(index):
             err = _library().repro_gemm(*args)
     if err != 0:
-        raise RuntimeError(f"GEMM kernel launch failed: error {err} for tile "
-                           f"{(block_m, block_n, block_k)}, shape {(m, k, n)}, "
-                           f"{width}-byte copies")
-    count_launch(functools.partial(_count, width))
-    return c
+        raise RuntimeError(f"GEMM kernel launch failed: error {err} for tile {tile}, "
+                           f"shape {(m, k, n)}, copy mode {mode}")
 
 
-def _count(width: int) -> None:
+def _count(mode: Union[int, str]) -> None:
     matmul_kernel.launches += 1
-    matmul_kernel.launches_by_copy[width] += 1
+    matmul_kernel.launches_by_copy[mode] += 1
 
 
 matmul_kernel.launches = 0

@@ -336,6 +336,239 @@ def test_copy_bytes_reads_the_base_address_too():
     assert kmod.copy_bytes(torch.empty(64, 60, dtype=torch.bfloat16)) == 4  # 120-byte rows
 
 
+# ------------------------------------------------------- copy modes ----
+
+#: the first chain of gemm-chain-rank's pool (dims U[1000, 2000])
+POOL_FIRST_CHAIN = (1851, 1637, 1511, 1270, 1308)
+
+
+def _modes_of_chain(dims):
+    """copy_mode of every GEMM of every algorithm of the chain ``dims``, on
+    fresh f32 CPU tensors (as the card's allocator hands them out, each base
+    on a 16-byte boundary)."""
+    from repro_torch.expressions import generate_chain_algorithms as port_algorithms
+    from repro_torch.expressions.algorithms import execute_steps
+
+    modes = []
+
+    def gemm(a, b):
+        c = torch.empty(a.shape[0], b.shape[1])
+        modes.append(kmod.copy_mode(a, b, c))
+        return c
+
+    mats = [torch.empty(dims[i], dims[i + 1]) for i in range(len(dims) - 1)]
+    for alg in port_algorithms(dims):
+        execute_steps(alg.steps, {f"M{i}": m for i, m in enumerate(mats)}, gemm)
+    return modes
+
+
+@pytest.mark.parametrize("dims", [POOL_FIRST_CHAIN, (497, 854, 338, 331, 279), (75, 75, 75, 75, 75)],
+                         ids=["pool_first_chain", "anomaly_331", "fig3_75"])
+def test_copy_mode_shifts_every_unaligned_f32_gemm_of_a_chain(dims):
+    """The pool's first chain, anomaly_331's widths and fig3_75: every GEMM
+    of every algorithm has a row stride off a 16-byte boundary, and every
+    one takes the shifted mode, none 4-byte copies."""
+    modes = _modes_of_chain(dims)
+    assert len(modes) == 18 and set(modes) == {kmod.SHIFT}
+
+
+@pytest.mark.parametrize("m,k,n", [(1000, 1000, 1000), (1024, 1024, 1024), (4096, 4096, 4096),
+                                   (256, 128, 1024), (1000, 1024, 1000)])
+def test_copy_mode_keeps_aligned_shapes_at_16(m, k, n):
+    a, b, c = torch.empty(m, k), torch.empty(k, n), torch.empty(m, n)
+    assert kmod.copy_mode(a, b, c) == 16
+
+
+@pytest.mark.parametrize("m,k,n", [(1851, 1637, 1511), (497, 854, 338), (75, 8, 75),
+                                   (300, 200, 450), (17, 23, 13), (1000, 1000, 1022)])
+def test_copy_mode_shifts_f32_rows_off_a_boundary(m, k, n):
+    a, b, c = torch.empty(m, k), torch.empty(k, n), torch.empty(m, n)
+    assert kmod.copy_bytes(a, b, c) == 4 and kmod.copy_mode(a, b, c) == kmod.SHIFT
+
+
+def test_copy_mode_keeps_a_base_off_a_boundary_at_4():
+    """A view one element into a storage that starts on a boundary: its row 0
+    would need the bytes before it, so 4-byte copies, as copy_bytes says;
+    whichever operand it is. A base 4 elements in is on a boundary again."""
+    storage = torch.empty(4 + 64 * 65)
+    off = storage[1:1 + 64 * 65].view(64, 65)
+    on = storage[4:4 + 64 * 65].view(64, 65)
+    b, c = torch.empty(65, 64), torch.empty(64, 64)
+    assert kmod.copy_mode(off, b, c) == 4
+    assert kmod.copy_mode(torch.empty(64, 64), off, torch.empty(64, 65)) == 4
+    assert kmod.copy_mode(on, b, c) == kmod.SHIFT
+    # C is stored element by element outside mode 16: its base does not matter
+    assert kmod.copy_mode(on, b, storage[1:1 + 64 * 64].view(64, 64)) == kmod.SHIFT
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (64, 60, 64), (1851, 1637, 1511), (497, 854, 338),
+                                   (17, 23, 13)])
+def test_copy_mode_leaves_bf16_as_copy_bytes_has_it(m, k, n):
+    """bf16 has no shifted mode (ldmatrix wants its shared rows on 16-byte
+    boundaries): 16 or 4, as copy_bytes gives."""
+    a, b = torch.empty(m, k, dtype=torch.bfloat16), torch.empty(k, n, dtype=torch.bfloat16)
+    for c in (torch.empty(m, n, dtype=torch.bfloat16), torch.empty(m, n)):
+        assert kmod.copy_mode(a, b, c) == kmod.copy_bytes(a, b, c)
+
+
+def test_copy_modes_are_the_launch_counters_keys():
+    assert kmod.COPY_WIDTHS == (16, kmod.SHIFT, 4)
+    assert set(kmod.matmul_kernel.launches_by_copy) == set(kmod.COPY_WIDTHS)
+
+
+# The shifted loader (gemm.cu's load_tile_shifted and the fragment shifts),
+# emulated in numpy on a flat f32 memory whose element 0 is on a 16-byte
+# boundary: an address is an element index, a 16-byte chunk four of them.
+
+def _tile_geometry(tile, operand):
+    """(rows, cols, pitch, threads) of one stage's A or B tile, as
+    gemm.cu's Layout gives them for f32."""
+    bm, bn, bk = tile
+    wm, wn, _ = _tile_table(kmod.SOURCE.read_text())[tile]
+    threads = 32 * wm * wn
+    return (bm, bk, bk + 4, threads) if operand == "A" else (bk, bn, bn + 8, threads)
+
+
+def _shifted_copies(rows, cols, threads, base, ld, r0, c0, rmax, cmax):
+    """The chunks load_tile_shifted issues: (source, column in the stage
+    row, elements read, stage row), per thread in the kernel's order. A row
+    off a boundary has one chunk more: the thread in chunk column q copies
+    it for the q-th of its rows."""
+    per_row, step = cols // 4, threads // (cols // 4)
+    sweeps = -(-rows // step)
+    width = min(cmax - c0, cols)
+    copies = []
+    for tid in range(threads):
+        q, r = tid % per_row, tid // per_row
+        c = 4 * q
+        row = base + (r0 + r) * ld + c0
+        sh = row % 4
+        n = min(max(sh + width - c, 0), 4)
+        src = row - sh + c
+        mine = r + q * step
+        if sh > 0 and q < sweeps and mine < rows:
+            valid = max(sh + width - cols, 0) if r0 + mine < rmax else 0
+            copies.append((src + q * step * ld + cols - c if valid else base, cols, valid, mine))
+        for _ in range(sweeps):
+            if r < rows:
+                valid = n if r0 + r < rmax else 0
+                copies.append((src if valid else base, c, valid, r))
+            r += step
+            src += step * ld
+    return copies
+
+
+def _emulate(tile, operand, ld_mod, offset, last):
+    """One stage of the operand's tile through the shifted loader: the
+    memory, the stage, the copies and the origin. The operand is R x ld,
+    contiguous (ld = its width, ld % 4 = ld_mod), ``offset`` elements into
+    its storage; ``last`` takes the last tile along both axes (ragged)."""
+    rows, cols, pitch, threads = _tile_geometry(tile, operand)
+    ld, height = 2 * cols + 4 + ld_mod, 2 * rows + 3  # the last tiles are ragged
+    mem = np.full(offset + height * ld + 8, np.nan, np.float32)
+    view = np.random.default_rng(ld * 7 + offset + rows).standard_normal((height, ld)).astype(np.float32)
+    mem[offset:offset + height * ld] = view.ravel()
+    r0 = (height // rows) * rows if last else 0
+    c0 = (ld // cols) * cols if last else 0
+    copies = _shifted_copies(rows, cols, threads, offset, ld, r0, c0, height, ld)
+    stage = np.full(rows * pitch, np.nan, np.float32)
+    for src, col, valid, r in copies:
+        dst = r * pitch + col
+        stage[dst:dst + 4] = 0.0
+        stage[dst:dst + valid] = mem[src:src + valid]
+    return dict(mem=mem, view=view, stage=stage.reshape(rows, pitch), copies=copies, rows=rows,
+                cols=cols, pitch=pitch, threads=threads, ld=ld, r0=r0, c0=c0, offset=offset,
+                height=height)
+
+
+def _fragment_shifts(e, tile, operand):
+    """Each fragment row's shift as the kernel's threads compute it, once
+    before the loop: A's from row row0 + g, B's from row t (lane = 4 g + t)."""
+    shifts = {}
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        row = e["r0"] + g if operand == "A" else t
+        shifts[lane] = (e["offset"] + row * e["ld"]) % 4
+    return shifts
+
+
+CASES = [(tile, operand, ld_mod, offset, last) for tile in kmod.SUPPORTED_TILES
+         for operand in "AB" for ld_mod in range(4) for offset in (0, 4) for last in (False, True)]
+
+
+@pytest.mark.parametrize("tile,operand,ld_mod,offset,last", CASES)
+def test_shifted_loader_reads_the_tile_in_aligned_chunks_within_the_operand(tile, operand, ld_mod,
+                                                                             offset, last):
+    """Every chunk starts on a 16-byte boundary and lands on one; no element
+    outside the operand is read (the head of row 0 is empty: its base is on
+    a boundary); read back through the threads' shifts, the stage holds the
+    tile's slice, zeros past the ragged edges; and each thread's fragment
+    rows (A: g, g + 8 of every m16 block; B: t, t + 4 of every k8 step) have
+    one shift, the one the thread computes."""
+    e = _emulate(tile, operand, ld_mod, offset, last)
+    lo, hi = e["offset"], e["offset"] + e["height"] * e["ld"]
+    for src, col, valid, r in e["copies"]:
+        assert src % 4 == 0 and (r * e["pitch"] + col) % 4 == 0
+        assert valid == 0 or (lo <= src and src + valid <= hi), (src, valid)
+    row_shift = [(e["offset"] + (e["r0"] + r) * e["ld"] + e["c0"]) % 4 for r in range(e["rows"])]
+    for r in range(e["rows"]):
+        want = np.zeros(e["cols"], np.float32)
+        if e["r0"] + r < e["height"]:
+            part = e["view"][e["r0"] + r, e["c0"]:e["c0"] + e["cols"]]
+            want[:part.size] = part
+        got = e["stage"][r, row_shift[r]:row_shift[r] + e["cols"]]
+        np.testing.assert_array_equal(got, want, err_msg=f"row {r}")
+    bm, bn, bk = tile
+    wm, wn, _ = _tile_table(kmod.SOURCE.read_text())[tile]
+    for lane, sh in _fragment_shifts(e, tile, operand).items():
+        g, t = lane >> 2, lane & 3
+        if operand == "A":
+            rows = {w * (bm // wm) + 16 * i + g + 8 * h for w in range(wm)
+                    for i in range(bm // wm // 16) for h in (0, 1)}
+        else:
+            rows = {kk + t + 4 * h for kk in range(0, bk, 8) for h in (0, 1)}
+        assert {row_shift[r] for r in rows} == {sh}
+        if ld_mod == 0:
+            assert sh == 0  # aligned rows: the 16-byte path's reads
+
+
+@pytest.mark.parametrize("tile", kmod.SUPPORTED_TILES)
+@pytest.mark.parametrize("ld_mod", range(4))
+def test_shifted_fragment_reads_take_at_most_two_wavefronts(tile, ld_mod):
+    """What the shift costs the fragment reads: rows of differing shifts
+    cannot tile the 32 banks, so one LDS of a warp meets at most 2 addresses
+    on a bank (conflict free, 1, where every row is aligned)."""
+    _, _, bk = tile
+    worst = 1
+    for operand in "AB":
+        rows, cols, pitch, _ = _tile_geometry(tile, operand)
+        for ld in (4 * 97 + ld_mod, 4 * 300 + ld_mod):
+            sh = [(r * ld) % 4 for r in range(rows)]
+            for kk in range(0, bk, 8):
+                for hi in (0, 1):  # the fragment's first and second rows (A: + 8, B: + 4)
+                    addrs = []
+                    for lane in range(32):
+                        g, t = lane >> 2, lane & 3
+                        if operand == "A":
+                            r, col = g + 8 * hi, kk + t
+                        else:
+                            r, col = kk + t + 4 * hi, g
+                        addrs.append(r * pitch + sh[r] + col)
+                    banks = {}
+                    for x in set(addrs):
+                        banks.setdefault(x % 32, set()).add(x)
+                    worst = max(worst, max(len(v) for v in banks.values()))
+    assert worst == (1 if ld_mod == 0 else 2)
+
+
+def test_shifted_loader_needs_an_aligned_base():
+    """A base one element past a boundary: row 0's first chunk would read
+    the element before the operand, which is why copy_mode gives 4 there."""
+    rows, cols, pitch, threads = _tile_geometry((64, 64, 64), "A")
+    copies = _shifted_copies(rows, cols, threads, 5, 130, 0, 0, 70, 130)
+    assert min(src for src, _, valid, _ in copies if valid) == 4 < 5
+
+
 # ------------------------------------------------- planted faults ----
 
 def _chip_smoke():
@@ -350,15 +583,17 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("index", range(3))
+@pytest.mark.parametrize("index", range(4))
 def test_planted_gemm_faults_edit_the_source_exactly_once(index):
     """Every planted GEMM fault of chip_smoke.py's phase 3 names a text that
     occurs exactly once in gemm.cu (a rewrite that loses one fails here, not
     on the card): lo forced to 0, a cross term dropped, the last K stage
-    skipped."""
+    skipped, A's row shift dropped (the shifted mode's own)."""
     faults = _chip_smoke().GEMM_FAULTS
     assert [name for name, _, _ in faults] == [
-        "lo forced to 0 (1xTF32)", "cross term a_hi*b_lo dropped", "last K stage skipped"]
+        "lo forced to 0 (1xTF32)", "cross term a_hi*b_lo dropped", "last K stage skipped",
+        "A's row shift dropped"]
+    assert _chip_smoke().SHIFT_ONLY_FAULTS == ("A's row shift dropped",)
     name, old, new = faults[index]
     src = kmod.SOURCE.read_text()
     assert src.count(old) == 1, name
