@@ -615,37 +615,29 @@ def build_fault(mod, build_library, tmp, index, old, new):
     return build_library(path, Path(tmp))
 
 
-def counts_of(wrapper):
-    """A copy of a kernel wrapper's launch counters (its attributes)."""
-    return {k_: dict(v) if isinstance(v, dict) else v for k_, v in vars(wrapper).items()}
-
-
-def run_with(mod, wrapper, lib, fn):
-    """``fn()`` with ``mod``'s kernel bound to the loaded library ``lib``
-    (a planted fault, a build without the NaN guard); the wrapper's launch
-    counters are restored afterwards, since these launches are no path's."""
-    real, saved = mod._library, counts_of(wrapper)
-    mod._library = lambda: lib
+def run_with(kernel, fn, call):
+    """``call()`` with the hand kernel ``kernel`` (a module's ``KERNEL``)
+    bound to ``fn``, another build's function (a planted fault, a build
+    without the NaN guard). Its launches count as the kernel's: every path
+    resets the counts before it counts."""
+    real = kernel.load()
+    kernel.fn = fn
     try:
-        return fn()
+        return call()
     finally:
-        mod._library = real
-        vars(wrapper).update(saved)
+        kernel.fn = real
 
 
-def in_turns(torch, mod, wrapper, lib, call, iters):
-    """CUDA-event ms of ``call()`` with ``mod``'s own library and with
-    ``lib``, in turns (own, other, other, own), on the same inputs; no
-    launch is counted."""
-    saved = counts_of(wrapper)
+def in_turns(torch, kernel, fn, call, iters):
+    """CUDA-event ms of ``call()`` with ``kernel``'s own build and with
+    ``fn``, in turns (own, other, other, own), on the same inputs."""
     ms = {"own": [], "other": []}
     for which in ("own", "other", "other", "own"):
         if which == "own":
             ms[which].append(cuda_ms(torch, call, iters))
         else:
-            ms[which].append(run_with(mod, wrapper, lib, lambda: cuda_ms(torch, call, iters)))
+            ms[which].append(run_with(kernel, fn, lambda: cuda_ms(torch, call, iters)))
     torch.cuda.synchronize()
-    vars(wrapper).update(saved)
     return ms
 
 
@@ -662,14 +654,12 @@ def flash_power(torch, fmod, faults, fault_libs, key, entry, plain, q, k, v):
     its tolerance, max |out - plain| / (tol * (1 + |plain|)), that the kernel
     and each planted fault of ``faults`` use, on the path's q and on q at
     unit scale. Returns the shares and the required faults that the path's
-    comparison did not reject. The faults' launches are not counted."""
+    comparison did not reject."""
     tol = FLASH_TOL[key]
 
     def share(out, ref):
         return float(((out.float() - ref.float()).abs() / (tol * (1 + ref.float().abs()))).max())
 
-    wrapper = fmod.flash_attention_kernel
-    saved = counts_of(wrapper)
     shares = {}
     for label, qs in (("path", q), ("unit scale", (q.float() / FLASH_Q_SCALE).to(q.dtype))):
         ref = plain(qs, k, v)
@@ -680,18 +670,12 @@ def flash_power(torch, fmod, faults, fault_libs, key, entry, plain, q, k, v):
                 bad = out.clone()
                 bad[:, 512:] = 0
             else:
-                bad = run_with(fmod, wrapper, fmod.bind(fault_libs[name]), lambda: entry(qs, k, v))
+                bad = run_with(fmod.KERNEL, fmod.KERNEL.bind(fault_libs[name]), lambda: entry(qs, k, v))
             row[name] = share(bad, ref)
         shares[label] = row
     torch.cuda.synchronize()
-    vars(wrapper).update(saved)
     missed = [name for name, _, _, must in faults if must and shares["path"][name] <= 1.0]
     return shares, missed
-
-
-def reset_gemm_counts(kmod):
-    kmod.matmul_kernel.launches = 0
-    kmod.matmul_kernel.launches_by_copy = {w: 0 for w in kmod.COPY_WIDTHS}
 
 
 def gemm_sass_check(kmod, lib_path, spills):
@@ -721,20 +705,17 @@ def gemm_power(torch, kmod, fault_libs, a, b, ref, shifted=False):
     """The power of an f32 comparison at the 64^3 tile (1000^3 in copy mode
     16, or SHIFT_SHAPE in the shifted mode): the share of its tolerance that
     the kernel and each planted fault use. Returns the shares and the faults
-    it did not reject (SHIFT_ONLY_FAULTS only where ``shifted``). The
-    faults' launches are not counted."""
+    it did not reject (SHIFT_ONLY_FAULTS only where ``shifted``)."""
     tol = TOL["float32"]
 
     def share():
         out = kmod.matmul_kernel(a, b, block_m=64, block_n=64, block_k=64)
         return float(((out - ref).abs() / (tol * (1 + ref.abs()))).max())
 
-    saved = counts_of(kmod.matmul_kernel)
     shares = {"kernel": share()}
     for name, _, _ in GEMM_FAULTS:
-        shares[name] = run_with(kmod, kmod.matmul_kernel, kmod.bind(fault_libs[name]), share)
+        shares[name] = run_with(kmod.KERNEL, kmod.KERNEL.bind(fault_libs[name]), share)
     torch.cuda.synchronize()
-    vars(kmod.matmul_kernel).update(saved)
     return shares, [name for name, _, _ in GEMM_FAULTS
                     if shares[name] <= 1.0 and (shifted or name not in SHIFT_ONLY_FAULTS)]
 
@@ -766,14 +747,15 @@ def host_cost(torch, kmod, dev):
     """Host clock around ``HOST_LAUNCHES`` launches with one synchronize, us
     per launch: the wrapper on a 64^3 GEMM at the 64^3 tile, its parts
     (the output's allocation, the ctypes call with fixed arguments) and
-    ``torch.matmul`` on the same inputs."""
+    ``torch.matmul`` on the same inputs. The wrapper's launches count as
+    the GEMM's: every path resets the counts before it counts."""
     a = torch.randn(64, 64, device=dev)
     b = torch.randn(64, 64, device=dev)
     c = torch.empty(64, 64, device=dev)
-    lib = kmod._library()
-    args = (64, 64, 64, 0, 0, kmod.copy_bytes(a, b, c), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            64, 64, 64, 64, 64, 64, torch.cuda.current_stream().cuda_stream)
-    launches = (kmod.matmul_kernel.launches, dict(kmod.matmul_kernel.launches_by_copy))
+    fn, calls = kmod.KERNEL.load(), []
+    run_with(kmod.KERNEL, lambda *args: calls.append(args) or 0,
+             lambda: kmod.launch(a, b, c, (64, 64, 64), kmod.copy_mode(a, b, c)))
+    args = calls[0]  # the wrapper's arguments, the stream last
 
     def per_launch(fn):
         for _ in range(20):
@@ -788,10 +770,9 @@ def host_cost(torch, kmod, dev):
     out = {
         "matmul_kernel": per_launch(lambda: kmod.matmul_kernel(a, b)),
         "torch.empty [64, 64]": per_launch(lambda: torch.empty((64, 64), device=dev)),
-        "repro_gemm through ctypes": per_launch(lambda: lib.repro_gemm(*args)),
+        "repro_gemm through ctypes": per_launch(lambda: fn(*args)),
         "torch.matmul": per_launch(lambda: torch.matmul(a, b)),
     }
-    kmod.matmul_kernel.launches, kmod.matmul_kernel.launches_by_copy = launches
     return out
 
 
@@ -915,12 +896,12 @@ def phase_flash(torch, dev, peak, rates, fmod, fault_libs, f32_fault_libs, launc
         inputs[name, dtype] = (randn(b, s, h, d, dtype=dtype, scale=FLASH_Q_SCALE),
                                randn(b, s, kv, d, dtype=dtype), randn(b, s, kv, d, dtype=dtype))
     outs = {}
-    fmod.reset_counts()
+    fmod.KERNEL.reset()
     for (name, _, kw), dtype in itertools.product(FLASH_PATH, dtypes):
         outs[name, dtype] = flash_attention(*inputs[name, dtype], **kw)
     torch.cuda.synchronize()
-    launches["flash_attention[ops]"] = fmod.flash_attention_kernel.launches
-    by_dtype = dict(fmod.flash_attention_kernel.launches_by_dtype)
+    launches["flash_attention[ops]"] = fmod.KERNEL.launches
+    by_dtype = dict(fmod.KERNEL.launches_by)
     log(f"[8 flash] ops path (gqa, qwen3-14b, gemma2-27b; f32 and bf16): flash kernel launches "
         f"{launches['flash_attention[ops]']} (by dtype: {by_dtype})")
     if not all(by_dtype.values()):
@@ -1090,12 +1071,10 @@ def ssd_power(torch, smod, fault_libs, run, ref):
     def share(out):
         return float(((out - ref).abs() / (SSD_TOL * (1 + ref.abs()))).max())
 
-    saved = counts_of(smod.ssd_scan_kernel)
     shares = {"kernel": share(run())}
     for name, _, _, _ in SSD_FAULTS:
-        shares[name] = share(run_with(smod, smod.ssd_scan_kernel, smod.bind(fault_libs[name]), run))
+        shares[name] = share(run_with(smod.KERNEL, smod.KERNEL.bind(fault_libs[name]), run))
     torch.cuda.synchronize()
-    vars(smod.ssd_scan_kernel).update(saved)
     return shares, [name for name, _, _, must in SSD_FAULTS if must and not shares[name] > 1.0]
 
 
@@ -1152,7 +1131,7 @@ def phase_ssd(torch, dev, peak, smod, launches, fault_libs, rates, built, unguar
     nan_case = {"bits": nan_bits, "plain_nan_tokens_heads": sorted(
                     {tuple(t_) for t_ in ref.isnan().nonzero()[:, :3].tolist()}),
                 "kernel_nan": int(out.isnan().sum()), "plain_nan": int(ref.isnan().sum()),
-                "unguarded_nan": int(run_with(smod, smod.ssd_scan_kernel, unguarded, run).isnan().sum())}
+                "unguarded_nan": int(run_with(smod.KERNEL, unguarded, run).isnan().sum())}
     log(f"[9 ssd] NaN made on the card (bits {nan_bits}) in C[0, 40, 1, 3] ({label} "
         f"{(b, s, h, p, n, g, chunk)}): kernel NaN at {nan_case['kernel_nan']} elements, plain at "
         f"{nan_case['plain_nan']} ((batch, token, head): {nan_case['plain_nan_tokens_heads']}); "
@@ -1164,10 +1143,10 @@ def phase_ssd(torch, dev, peak, smod, launches, fault_libs, rates, built, unguar
 
     b, s, h, p, n, g, chunk = MAMBA2
     x, dt, a_log, bm, cm = mixer_inputs(b, s, h, p, n, g)
-    smod.ssd_scan_kernel.launches = 0
+    smod.KERNEL.reset()
     y = ssd_mix(x, dt, a_log, bm, cm, chunk=chunk)
     torch.cuda.synchronize()
-    launches["ssd[ssd_mix]"] = smod.ssd_scan_kernel.launches
+    launches["ssd[ssd_mix]"] = smod.KERNEL.launches
     log(f"[9 ssd] ssd_mix path at mamba2-1.3b {MAMBA2}: SSD kernel launches {launches['ssd[ssd_mix]']}")
     if launches["ssd[ssd_mix]"] == 0:
         sys.exit("chip_smoke: the ssd_mix path launched no SSD kernel")
@@ -1225,7 +1204,7 @@ def phase_ssd(torch, dev, peak, smod, launches, fault_libs, rates, built, unguar
         f"bytes {row['bytes_ms']:.4f}; flops: data {flops:.4e}, kernel {flops_kernel:.4e} "
         f"({row['kernel_tflops']:.1f} TFLOP/s), with the scores per head {flops_per_head:.4e}, "
         f"the site's formula {flops_ref:.4e}; plain {row['plain_ms']:.4f} ms, library - ({row['library']})")
-    guard = in_turns(torch, smod, smod.ssd_scan_kernel, unguarded,
+    guard = in_turns(torch, smod.KERNEL, unguarded,
                      lambda: smod.ssd_scan_kernel(xbar, logda, bm, cm, chunk=chunk), 10)
     row["guard_cost_ms"] = {"guarded": guard["own"], "unguarded": guard["other"]}
     log(f"[9 guard] mamba2-1.3b, in turns (guarded, unguarded, unguarded, guarded): guarded "
@@ -1605,7 +1584,7 @@ def phase_census(torch, kmod, matmul_ref, launches, work, device="cuda", default
     for key, spec_ in eager_specs:
         root = work / f"{key}_eager"
         fam_secs, undo = family_timer(sweep, family)
-        before = kmod.matmul_kernel.launches
+        before = kmod.KERNEL.launches
         t0 = time.perf_counter()
         try:
             with graphs.eager_thunks():
@@ -1614,7 +1593,7 @@ def phase_census(torch, kmod, matmul_ref, launches, work, device="cuda", default
         finally:
             undo()
         if key == "kernel_lane":
-            launches["census[kernel_variants, eager]"] = kmod.matmul_kernel.launches - before
+            launches["census[kernel_variants, eager]"] = kmod.KERNEL.launches - before
         sweep.write_merged(spec_, str(root))
         eager[key] = {"records": check_store(sweep, spec_, root, f"the {key} census on eager thunks"),
                       "seconds": time.perf_counter() - t0, "family_seconds": fam_secs}
@@ -1627,7 +1606,7 @@ def phase_census(torch, kmod, matmul_ref, launches, work, device="cuda", default
         root = work / f"{key}_in_process"
         fam_secs, undo = family_timer(sweep, family)
         if key == "kernel_lane":
-            reset_gemm_counts(kmod)
+            kmod.KERNEL.reset()
         graphs_live, untrack = track_graphs(algorithms, graphs)
         allocated = torch.cuda.memory_allocated() if device == "cuda" else 0
         t0 = time.perf_counter()
@@ -1657,7 +1636,7 @@ def phase_census(torch, kmod, matmul_ref, launches, work, device="cuda", default
         if device == "cuda" and not graphs_live["thunks"]:
             sys.exit(f"chip_smoke: the {key} census's measured thunks captured no CUDA graph")
         if key == "kernel_lane":
-            launches["census[kernel_variants]"] = kmod.matmul_kernel.launches
+            launches["census[kernel_variants]"] = kmod.KERNEL.launches
         sweep.write_merged(spec_, str(root))
         second = check_store(sweep, spec_, root, f"the {key} census (in process)")
         census_tables(second, name=spec_.name)
@@ -1781,12 +1760,12 @@ def phase_explain(torch, kmod, launches, stores, work, device="cuda", knobs=EXPL
     root.mkdir()
     espec.save(str(root / runner.SPEC_FILE))
     census = runner.explain_targets(espec)
-    reset_gemm_counts(kmod)
+    kmod.KERNEL.reset()
     t0 = time.perf_counter()
     for shard in range(espec.n_shards):
         runner.run_explain_shard(espec, str(root), shard, census=census, device=device)
     secs = time.perf_counter() - t0
-    launches["explain[kernel_variants]"] = kmod.matmul_kernel.launches
+    launches["explain[kernel_variants]"] = kmod.KERNEL.launches
     runner.write_merged_explained(espec, str(root))
     first = {r["uid"]: r["cause"] for r in runner.merge_explained(espec, str(roots["kernel_lane"]))}
     second = {r["uid"]: r["cause"] for r in runner.merge_explained(espec, str(root))}
@@ -1979,13 +1958,13 @@ def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card
         if how == "cli":
             secs, _ = census_cli(["queue", "work", "--out", str(lane)], device)
         else:
-            reset_gemm_counts(kmod)
+            kmod.KERNEL.reset()
             t0 = time.perf_counter()
             if qmod.main(["work", "--out", str(lane), "--device", device]) != 0:
                 sys.exit("chip_smoke: the in-process `queue work` of the oracle's misses failed")
             secs = time.perf_counter() - t0
-            launches["oracle[kernel_variants]"] = kmod.matmul_kernel.launches
-            out["launches_by_copy"]["oracle[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
+            launches["oracle[kernel_variants]"] = kmod.KERNEL.launches
+            out["launches_by_copy"]["oracle[kernel_variants]"] = dict(kmod.KERNEL.launches_by)
         again, _ = oracle_query(lane, misses, work / f"miss_{how}_again", device)
         require_confidence(again, "measured", f"kernel-lane misses after `queue work` ({how})", enqueued=False)
         total, pending = pending_misses(lane)
@@ -2074,12 +2053,12 @@ def phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, work, card
                  f"{act['measured']} ({kv_predicted} kernel_variants predicted); both branches must run and "
                  "the GEMM's tiles be measured")
     spec = SweepSpec.load(str(work / "wall_clock_active" / "spec.json"))
-    reset_gemm_counts(kmod)
+    kmod.KERNEL.reset()
     t0 = time.perf_counter()
     api.run_census(str(work / "wall_clock_active_in_process"), spec, device=device)
     secs = time.perf_counter() - t0
-    launches["active_census[kernel_variants]"] = kmod.matmul_kernel.launches
-    out["launches_by_copy"]["active_census[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
+    launches["active_census[kernel_variants]"] = kmod.KERNEL.launches
+    out["launches_by_copy"]["active_census[kernel_variants]"] = dict(kmod.KERNEL.launches_by)
     rows = read_jsonl(work / "wall_clock_active_in_process" / "merged.jsonl")
     n_pred = sum(r.get("provenance") == "predicted" for r in rows)
     if n_pred != act["predicted"] or not launches["active_census[kernel_variants]"]:
@@ -2430,9 +2409,7 @@ def phase_models(torch, kmod, fmod, smod, card, device="cuda", archs=None, full_
         log(f"[14 models] {msg} [{card}]")
 
     dev = torch.device(device)
-    reset_gemm_counts(kmod)
-    fmod.reset_counts()
-    smod.ssd_scan_kernel.launches = 0
+    reset_kernel_counts(kmod, fmod, smod)
     out = {"smoke": {}, "full": {}, "moe_dispatch_site": {}, "seconds": {}}
 
     # 1. every SMOKE config, f32, on the card against the CPU
@@ -2480,9 +2457,7 @@ def phase_models(torch, kmod, fmod, smod, card, device="cuda", archs=None, full_
     out["seconds"]["moe_dispatch_site"] = time.perf_counter() - t0
 
     # the three hand kernels were launched by none of the above
-    out["kernel_launches"] = {"gemm": kmod.matmul_kernel.launches,
-                              "flash_attention": fmod.flash_attention_kernel.launches,
-                              "ssd": smod.ssd_scan_kernel.launches}
+    out["kernel_launches"] = kernel_counts(kmod, fmod, smod)
     say(f"hand-kernel launches over the phase's in-process steps: {out['kernel_launches']}")
     if any(out["kernel_launches"].values()):
         sys.exit(f"chip_smoke: the model path launched a hand kernel: {out['kernel_launches']}")
@@ -2660,9 +2635,7 @@ def phase_train(torch, kmod, fmod, smod, card, device="cuda", full_archs=TRAIN_A
 
     dev = torch.device(device)
     peak = peaks(torch.cuda.get_device_name(0))
-    reset_gemm_counts(kmod)
-    fmod.reset_counts()
-    smod.ssd_scan_kernel.launches = 0
+    reset_kernel_counts(kmod, fmod, smod)
     out = {"full": {}, "smoke": {}, "seconds": {}}
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
 
@@ -2701,9 +2674,7 @@ def phase_train(torch, kmod, fmod, smod, card, device="cuda", full_archs=TRAIN_A
     out["seconds"]["elastic"] = time.perf_counter() - t0
 
     # 5. the hand kernels' counters over the in-process steps (recorded)
-    out["kernel_launches"] = {"gemm": kmod.matmul_kernel.launches,
-                              "flash_attention": fmod.flash_attention_kernel.launches,
-                              "ssd": smod.ssd_scan_kernel.launches}
+    out["kernel_launches"] = kernel_counts(kmod, fmod, smod)
     say(f"hand-kernel launches over the phase's in-process steps: {out['kernel_launches']} (expected 0, 0, 0)")
 
     # 6. the training launcher, as a user runs it
@@ -2813,9 +2784,7 @@ def phase_distributed(torch, kmod, fmod, smod, card, device="cuda", backend="ncc
         log(f"[16 distributed] {msg} [{card}]")
 
     dev = torch.device(device)
-    reset_gemm_counts(kmod)
-    fmod.reset_counts()
-    smod.ssd_scan_kernel.launches = 0
+    reset_kernel_counts(kmod, fmod, smod)
     out = {"seconds": {}}
 
     # (a) a world of one on the card's own backend
@@ -2850,9 +2819,7 @@ def phase_distributed(torch, kmod, fmod, smod, card, device="cuda", backend="ncc
             sys.exit("chip_smoke: compressed_psum or pipeline_apply disagrees on a world of one")
     finally:
         compat.destroy_process_group()
-    out["kernel_launches"] = {"gemm": kmod.matmul_kernel.launches,
-                              "flash_attention": fmod.flash_attention_kernel.launches,
-                              "ssd": smod.ssd_scan_kernel.launches}
+    out["kernel_launches"] = kernel_counts(kmod, fmod, smod)
     say(f"hand-kernel launches over part (a): {out['kernel_launches']} (expected 0, 0, 0)")
     out["seconds"]["a"] = time.perf_counter() - t0
 
@@ -2899,14 +2866,13 @@ def host_available_bytes():
 
 
 def kernel_counts(kmod, fmod, smod):
-    return {"gemm": kmod.matmul_kernel.launches, "flash_attention": fmod.flash_attention_kernel.launches,
-            "ssd": smod.ssd_scan_kernel.launches}
+    return {"gemm": kmod.KERNEL.launches, "flash_attention": fmod.KERNEL.launches,
+            "ssd": smod.KERNEL.launches}
 
 
 def reset_kernel_counts(kmod, fmod, smod):
-    reset_gemm_counts(kmod)
-    fmod.reset_counts()
-    smod.ssd_scan_kernel.launches = 0
+    for mod in (kmod, fmod, smod):
+        mod.KERNEL.reset()
 
 
 def elastic_run(torch, T, compat, cfg, dev, work, name, events, profiled=False):
@@ -3290,8 +3256,8 @@ def main():
     builds = concurrent.futures.ThreadPoolExecutor(
         max_workers=5 + len(FLASH_FAULTS) + len(FLASH_F32_FAULTS) + len(GEMM_FAULTS) + len(SSD_FAULTS))
     t_builds = time.perf_counter()
-    later_builds = {"flash_attention": builds.submit(fmod.build), "ssd": builds.submit(smod.build)}
-    peak_build = builds.submit(build_library, kmod.SOURCE.parent / "mma_peak.cu", kmod.BUILD_DIR)
+    later_builds = {"flash_attention": builds.submit(fmod.KERNEL.build), "ssd": builds.submit(smod.KERNEL.build)}
+    peak_build = builds.submit(build_library, kmod.SOURCE.parent / "mma_peak.cu", kmod.KERNEL.build_dir)
     fault_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_faults_")
     fault_builds = {name: builds.submit(build_fault, fmod, build_library, fault_dir.name, i, old, new)
                     for i, (name, old, new, _) in enumerate(FLASH_FAULTS) if old is not None}
@@ -3305,7 +3271,7 @@ def main():
                         for i, (name, old, new, _) in enumerate(SSD_FAULTS)}
     t0 = time.perf_counter()
     lib_path = kmod.build()
-    kmod._library()
+    kmod.KERNEL.load()
     build_s = time.perf_counter() - t0
     used, spills = ptxas_report(lib_path)
     details["build"] = {"seconds": build_s, "library": str(lib_path.relative_to(ROOT)),
@@ -3328,7 +3294,7 @@ def main():
         compare(key, out, ref, tol, what)
         by_tile.hold(f"{'x'.join(map(str, tile))} {pair}", out, ref, tol, what)
 
-    reset_gemm_counts(kmod)
+    kmod.KERNEL.reset()
     shift_bitwise = {"launches": 0, "unequal": []}  # the shifted mode against the 4-byte mode
     for tile in kmod.SUPPORTED_TILES:
         bm, bn, bk = tile
@@ -3369,7 +3335,7 @@ def main():
     log("[3 kernel vs plain] largest share of the tolerance per (tile, dtype pair): "
         + ", ".join(f"{k_} {x:.4g}" for k_, x in by_tile.used.items()))
     fail_on("phase 3")
-    by_copy = dict(kmod.matmul_kernel.launches_by_copy)
+    by_copy = dict(kmod.KERNEL.launches_by)
     log(f"[3 kernel vs plain] GEMM launches by copy mode: {by_copy}")
     if not all(by_copy.values()):
         sys.exit(f"chip_smoke: phase 3 did not launch every copy mode: {by_copy}")
@@ -3400,7 +3366,7 @@ def main():
     # A NaN made on the card in one element of A: row 137 of C, and only that
     # row, is NaN in the plain version, at every tile; the build without the
     # split's NaN guard is shown beside it.
-    unguarded = {mod: mod.bind(future.result()) for mod, future in unguarded_builds.items()}
+    unguarded = {mod: mod.KERNEL.bind(future.result()) for mod, future in unguarded_builds.items()}
     nan, nan_bits = device_nan(torch, dev)
     a_nan = a.clone()
     a_nan[137, 421] = nan
@@ -3409,7 +3375,7 @@ def main():
         gemm_checks.hold_nans("float32", kmod.matmul_kernel(a_nan, b, block_m=bm, block_n=bn, block_k=bk),
                               ref_nan, TOL["float32"], f"NaN {nan_bits} in A[137, 421], tile {(bm, bn, bk)}")
     gemm_nan = {"bits": nan_bits, "plain_nan": int(ref_nan.isnan().sum()),
-                "unguarded_nan": int(run_with(kmod, kmod.matmul_kernel, unguarded[kmod], lambda: kmod.matmul_kernel(
+                "unguarded_nan": int(run_with(kmod.KERNEL, unguarded[kmod], lambda: kmod.matmul_kernel(
                     a_nan, b, block_m=64, block_n=64, block_k=64)).isnan().sum())}
     log(f"[3 NaN] 1000^3 f32, a NaN made on the card (bits {nan_bits}) in A[137, 421]: plain NaN at "
         f"{gemm_nan['plain_nan']} elements (row 137); every tile's NaN positions equal: "
@@ -3494,7 +3460,7 @@ def main():
     # What the split's NaN guard costs: the same build without it, in turns.
     a = torch.randn(1000, 1000, generator=gen, device=dev) / math.sqrt(1000)
     b = torch.randn(1000, 1000, generator=gen, device=dev)
-    guard = in_turns(torch, kmod, kmod.matmul_kernel, unguarded[kmod],
+    guard = in_turns(torch, kmod.KERNEL, unguarded[kmod],
                      lambda: kmod.matmul_kernel(a, b, block_m=64, block_n=64, block_k=64), 50)
     details["gemm_guard_cost_ms"] = {"guarded": guard["own"], "unguarded": guard["other"]}
     log(f"[4 guard] 1000^3 f32, tile 64^3, in turns (guarded, unguarded, unguarded, guarded): guarded "
@@ -3535,10 +3501,10 @@ def main():
                     # These calls do not count as the path's.
                     for alg in algs:
                         eager = build_algorithm_fn(alg, mats, jit=False, gemm=gemm)()
-                        before = kmod.matmul_kernel.launches
+                        before = kmod.KERNEL.launches
                         for _ in range(3):
                             out = workloads[alg.name]()
-                        counted = kmod.matmul_kernel.launches - before
+                        counted = kmod.KERNEL.launches - before
                         want = 3 * len(alg.steps) if route == "hand_gemm" else 0
                         if counted != want:
                             sys.exit(f"chip_smoke: 3 replays of {inst_name} {alg.name} ({route}) counted "
@@ -3548,7 +3514,7 @@ def main():
                     replay_checks.stop_if_failed(f"phase 5, {route} replays")
                 # The path's launches are those of timing and ranking: the
                 # build's warm-up (and capture) and the checks above are not.
-                reset_gemm_counts(kmod)
+                kmod.KERNEL.reset()
                 timer = WallClockTimer(workloads)
                 single = {a.name: timer.measure(a.name) for a in algs}
                 result = measure_and_rank(initial_hypothesis_by_time(single), timer,
@@ -3574,9 +3540,9 @@ def main():
                         f"mr={alg.mean_rank:.2f} RF={rf[alg.name]:.2f} "
                         f"t1={single[alg.name] * 1e3:.4f} ms r={timer.inner_repeats[alg.name]}")
                 del workloads, timer
-                path_launches["total"] += kmod.matmul_kernel.launches
+                path_launches["total"] += kmod.KERNEL.launches
                 for w in kmod.COPY_WIDTHS:
-                    path_launches[w] += kmod.matmul_kernel.launches_by_copy[w]
+                    path_launches[w] += kmod.KERNEL.launches_by[w]
             launches[path] = path_launches["total"]
             launches_by_copy[path] = {w: path_launches[w] for w in kmod.COPY_WIDTHS}
             log(f"[5 quickstart {route} {mode}] GEMM kernel launches in timing and ranking: {launches[path]} "
@@ -3606,14 +3572,14 @@ def main():
                 f"site {site.name} {variant.name}")
     fail_on("phase 6")
     del a, b, plain
-    reset_gemm_counts(kmod)
+    kmod.KERNEL.reset()
     report = rank_site(site)
-    launches["autotune[matmul_blocks]"] = kmod.matmul_kernel.launches
-    launches_by_copy["autotune[matmul_blocks]"] = dict(kmod.matmul_kernel.launches_by_copy)
-    reset_gemm_counts(kmod)
+    launches["autotune[matmul_blocks]"] = kmod.KERNEL.launches
+    launches_by_copy["autotune[matmul_blocks]"] = dict(kmod.KERNEL.launches_by)
+    kmod.KERNEL.reset()
     autotune_routes = eager_rank(rank_site, site, report)
-    launches["autotune[matmul_blocks, eager]"] = kmod.matmul_kernel.launches
-    launches_by_copy["autotune[matmul_blocks, eager]"] = dict(kmod.matmul_kernel.launches_by_copy)
+    launches["autotune[matmul_blocks, eager]"] = kmod.KERNEL.launches
+    launches_by_copy["autotune[matmul_blocks, eager]"] = dict(kmod.KERNEL.launches_by)
     log("[6 autotune] " + report.summary().replace("\n", "\n    "))
     log(f"[6 autotune] GEMM kernel launches: {launches['autotune[matmul_blocks]']}")
     details["autotune"] = {
@@ -3675,8 +3641,8 @@ def main():
     f32_fault_libs = {name: future.result() for name, future in f32_fault_builds.items()}
     ssd_fault_libs = {name: future.result() for name, future in ssd_fault_builds.items()}
     builds.shutdown()
-    fmod._library()
-    smod._library()
+    fmod.KERNEL.load()
+    smod.KERNEL.load()
     built["seconds_from_start_of_phase_2"] = time.perf_counter() - t_builds
     details["build_attention_ssd"] = built
 
@@ -3697,14 +3663,14 @@ def main():
     mark("11 census")
     gemm_launches["census[kernel_variants]"] = launches["census[kernel_variants]"]
     gemm_launches["census[kernel_variants, eager]"] = launches["census[kernel_variants, eager]"]
-    launches_by_copy["census[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
+    launches_by_copy["census[kernel_variants]"] = dict(kmod.KERNEL.launches_by)
     t_explain = time.perf_counter()
     details["explain"] = phase_explain(torch, kmod, launches, stores, census_work)
     details["explain"]["seconds"] = time.perf_counter() - t_explain
     log(f"[12 explain] phase 12 took {details['explain']['seconds']:.1f} s")
     mark("12 explain")
     gemm_launches["explain[kernel_variants]"] = launches["explain[kernel_variants]"]
-    launches_by_copy["explain[kernel_variants]"] = dict(kmod.matmul_kernel.launches_by_copy)
+    launches_by_copy["explain[kernel_variants]"] = dict(kmod.KERNEL.launches_by)
     t_oracle = time.perf_counter()
     explains = {key: Path(census_work) / f"explain_{key}" for key in stores}
     details["oracle"] = phase_oracle(torch, kmod, matmul_ref, launches, stores, explains, census_work, card)

@@ -32,11 +32,11 @@ generation loop needs; :func:`measured_thunk` for the timed thunks):
 - The whole of it, warm-up to the streams' join, is the span
   ``rt.graph.capture`` (:mod:`repro_torch.spans`).
 
-The hand GEMM's wrapper counts its launches through :func:`count_launch`:
-at once when it launches, or, while a stream is being captured, at each
-replay of the graph that recorded the launch. The counter thus counts the
-kernel's real launches, and a capture adds nothing to it. (Flash attention
-and the SSD scan are never captured: their wrappers count directly.)
+Each hand kernel counts its launches through :func:`count_launch`
+(:meth:`repro_torch.kernels.build.HandKernel.count`): at once when it
+launches, or, while a stream is being captured, at each replay of the graph
+that recorded the launch. A kernel's counts are thus its real launches, and
+a capture adds nothing to them.
 """
 
 from __future__ import annotations

@@ -10,8 +10,8 @@ filled; in f32 both run on the tensor cores as 3xTF32 (``mma.sync``, each
 f32 operand split into two TF32 parts, three TF32 products per product), with
 K and V brought by ``cp.async`` into a 2-stage ring. Both walk only the kv
 tiles their queries can see and keep the online-softmax state in f32
-registers; the source note gives the bound and the design. This module builds
-the kernels, binds them with ``ctypes`` and checks everything they do not
+registers; the source note gives the bound and the design. This module
+declares their host side (:data:`KERNEL`) and checks everything they do not
 take.
 
 Two layouts, one kernel: the reference's head-flattened ``[bh, s, d]`` and
@@ -29,14 +29,13 @@ order of the sums.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-from ..build import build_library
+from ..build import HandKernel
 from .ref import flash_attention_plain
 
 #: Head dims instantiated in csrc/flash_attention.cu: the test shapes and
@@ -44,42 +43,20 @@ from .ref import flash_attention_plain
 HEAD_DIMS = (32, 64, 128)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 _TILE_Q = 128  # query rows of a CTA (both kernels): the grid's y extent is ceil(sq / 128)
-# The C entry point's own error codes (csrc/flash_attention.cu, its note's end).
-_ERRORS = {-1: "head dim not instantiated", -2: "dtype not taken",
-           -3: "a TMA tensor map could not be encoded",
-           -4: "the driver's cuTensorMapEncodeTiled was not found"}
-
-
-def build() -> Path:
-    """Compile ``csrc/flash_attention.cu`` (once per source and flags) and
-    return the shared library's path."""
-    return build_library(SOURCE, BUILD_DIR)
-
-
-def bind(path: Path) -> ctypes.CDLL:
-    """Load a library built from ``csrc/flash_attention.cu`` and declare its
-    C function's arguments."""
-    lib = ctypes.CDLL(str(path))
-    fn = lib.repro_flash_attention
-    fn.argtypes = (
-        [ctypes.c_int] * 2
-        + [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 10
-        + [ctypes.c_float] * 2
-        + [ctypes.c_longlong] * 12
-        + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    return bind(build())
+#: Both kernels' build, ``repro_flash_attention`` with its own error codes
+#: (csrc/flash_attention.cu, its note's end) and the launches counted by
+#: dtype (:class:`repro_torch.kernels.build.HandKernel`).
+KERNEL = HandKernel(
+    "flash-attention", SOURCE, "repro_flash_attention",
+    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
+    + [ctypes.c_longlong] * 12,
+    keys=("float32", "bfloat16"),
+    errors={-1: "head dim not instantiated", -2: "dtype not taken",
+            -3: "a TMA tensor map could not be encoded",
+            -4: "the driver's cuTensorMapEncodeTiled was not found"})
 
 
 def check_tma_layout(shape, strides, data_ptr: int, element_size: int) -> None:
@@ -147,8 +124,7 @@ def flash_attention_kernel(
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version :func:`~repro_torch.kernels.flash_attention.ref.flash_attention_plain`.
-    ``flash_attention_kernel.launches`` counts kernel launches, and
-    ``launches_by_dtype`` splits them between the f32 and the bf16 kernel.
+    ``KERNEL`` counts the launches, by dtype: the f32 and the bf16 kernel.
     """
     if q.dim() not in (3, 4) or k.dim() != q.dim() or v.shape != k.shape:
         raise ValueError(f"need q, k, v all [bh, s, d] or all [b, s, h, d], got "
@@ -191,31 +167,23 @@ def flash_attention_kernel(
     o4 = o if model_layout else o.unsqueeze(2)
     if o.numel() == 0:
         return o
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    strides = [st for x in (q4, k4, v4, o4) for st in _strides(x)]  # b, h, s
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.repro_flash_attention(
-            d, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, h, h // kh, sq, skv, skv - sq if causal else 0,
-            int(causal), int(window is not None), int(window or 0),
-            int(bool(logit_cap)), float(logit_cap or 0.0), float(scale),
-            *strides,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        what = _ERRORS.get(err, "CUDA error")
-        raise RuntimeError(f"flash-attention kernel launch failed: error {err} ({what}) for "
-                           f"q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}")
-    flash_attention_kernel.launches += 1
-    flash_attention_kernel.launches_by_dtype[str(q.dtype).split(".")[1]] += 1
+    launch(q4, k4, v4, o4, causal=causal, sm_scale=sm_scale, logit_cap=logit_cap, window=window)
+    KERNEL.count(str(q.dtype).split(".")[1])
     return o
 
 
-def reset_counts() -> None:
-    """Set the kernel's launch counters to 0."""
-    flash_attention_kernel.launches = 0
-    flash_attention_kernel.launches_by_dtype = {"float32": 0, "bfloat16": 0}
-
-
-reset_counts()
+def launch(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor, o4: torch.Tensor, *, causal: bool,
+           sm_scale: Optional[float], logit_cap: Optional[float], window: Optional[int]) -> None:
+    """One launch of the kernel of ``q4``'s dtype on the model layout, ``o4``
+    its output, on PyTorch's current stream of their device; raises if it
+    fails. Checks and counts nothing: :func:`flash_attention_kernel` does."""
+    b, sq, h, d = q4.shape
+    skv, kh = k4.shape[1], k4.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    strides = [st for x in (q4, k4, v4, o4) for st in _strides(x)]  # b, h, s
+    KERNEL.launch(
+        q4.device.index, lambda: f"q {tuple(q4.shape)}, k {tuple(k4.shape)}, {q4.dtype}",
+        d, _DTYPE_CODE[q4.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+        b, h, h // kh, sq, skv, skv - sq if causal else 0,
+        int(causal), int(window is not None), int(window or 0),
+        int(bool(logit_cap)), float(logit_cap or 0.0), float(scale), *strides)

@@ -7,9 +7,9 @@ Replaces the reference's Pallas TPU kernel
 shared-memory stages with ``cp.async`` and runs its products on the tensor
 cores with ``mma.sync``: f32 inputs as 3xTF32 (each operand split into two
 TF32 halves, three products), bf16 inputs directly; its source note gives
-the bound and the design. This module builds it, binds it with ``ctypes``,
-picks its copy mode (:func:`copy_mode`) and checks everything the kernel
-does not take.
+the bound and the design. This module declares its host side
+(:data:`KERNEL`), picks its copy mode (:func:`copy_mode`) and checks
+everything the kernel does not take.
 
 Tile shapes stay parameters because ``matmul_blocks_site`` ranks them, but
 only the instantiated set :data:`SUPPORTED_TILES` exists. The reference's
@@ -29,14 +29,12 @@ when this module is imported.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 from typing import Optional, Tuple, Union
 
 import torch
 
-from ...graphs import count_launch
-from ..build import NVCC_FLAGS, build_library  # noqa: F401  (NVCC_FLAGS: the build's flags)
+from ..build import HandKernel
 from .ref import matmul_ref
 
 #: (block_m, block_n, block_k) tiles instantiated in csrc/gemm.cu: the
@@ -54,47 +52,27 @@ SUPPORTED_TILES: Tuple[Tuple[int, int, int], ...] = (
 DEFAULT_TILE: Tuple[int, int, int] = (64, 64, 64)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gemm.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
-
-
-def build() -> Path:
-    """Compile ``csrc/gemm.cu`` (once per source and flags) and return the
-    shared library's path (:func:`repro_torch.kernels.build.build_library`)."""
-    return build_library(SOURCE, BUILD_DIR)
-
-
-def bind(path: Path) -> ctypes.CDLL:
-    """Load a library built from ``csrc/gemm.cu`` and declare its C
-    function's arguments."""
-    lib = ctypes.CDLL(str(path))
-    fn = lib.repro_gemm
-    fn.argtypes = (
-        [ctypes.c_int] * 6
-        + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 3
-        + [ctypes.c_longlong] * 3
-        + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    return bind(build())
-
 
 #: The kernel's 16-byte copies of f32 rows at any 4-byte alignment: each row
 #: from the 16-byte boundary at or below its first element (csrc/gemm.cu).
 SHIFT = "16-shift"
-#: The kernel's copy modes, each a key of ``matmul_kernel.launches_by_copy``:
+#: The kernel's copy modes, each a key of ``KERNEL.launches_by``:
 #: 16-byte ``cp.async`` where every row starts on a 16-byte boundary,
 #: :data:`SHIFT` (f32 inputs only) and 4-byte copies.
 COPY_WIDTHS: Tuple[Union[int, str], ...] = (16, SHIFT, 4)
 #: ``repro_gemm``'s sixth argument for each mode (gemm.cu's kShift16 is -16).
 _COPY_CODE = {16: 16, SHIFT: -16, 4: 4}
+
+#: The GEMM's build, ``repro_gemm`` and its launches counted by copy mode
+#: (:class:`repro_torch.kernels.build.HandKernel`).
+KERNEL = HandKernel(
+    "GEMM", SOURCE, "repro_gemm",
+    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3,
+    keys=COPY_WIDTHS)
+#: Compile ``csrc/gemm.cu`` (once per source and flags); the library's path.
+build = KERNEL.build
 
 
 def copy_bytes(*tensors: torch.Tensor) -> int:
@@ -148,10 +126,7 @@ def matmul_kernel(
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version :func:`~repro_torch.kernels.matmul.ref.matmul_ref`.
-    ``matmul_kernel.launches`` counts kernel launches and
-    ``matmul_kernel.launches_by_copy`` the same per copy mode; a launch
-    captured into a CUDA graph counts at each replay
-    (:func:`repro_torch.graphs.count_launch`).
+    ``KERNEL`` counts the launches, by copy mode.
     """
     check_tile(block_m, block_n, block_k)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -176,7 +151,7 @@ def matmul_kernel(
         raise ValueError(f"m={m} needs more than {_MAX_GRID_Y} row tiles of {block_m}")
     mode = copy_mode(a, b, c)
     launch(a, b, c, (block_m, block_n, block_k), mode)
-    count_launch(functools.partial(_count, mode))
+    KERNEL.count(mode)
     return c
 
 
@@ -189,25 +164,7 @@ def launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, tile: Tuple[int, i
     launch each mode on the same tensors to compare them."""
     m, k = a.shape
     n = b.shape[1]
-    index = a.device.index
-    args = (*tile, _DTYPE_CODE[a.dtype], _DTYPE_CODE[c.dtype], _COPY_CODE[mode],
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-            a.stride(0), b.stride(0), c.stride(0),
-            torch._C._cuda_getCurrentRawStream(index))  # PyTorch's current stream there
-    if index == torch.cuda.current_device():
-        err = _library().repro_gemm(*args)
-    else:
-        with torch.cuda.device(index):
-            err = _library().repro_gemm(*args)
-    if err != 0:
-        raise RuntimeError(f"GEMM kernel launch failed: error {err} for tile {tile}, "
-                           f"shape {(m, k, n)}, copy mode {mode}")
-
-
-def _count(mode: Union[int, str]) -> None:
-    matmul_kernel.launches += 1
-    matmul_kernel.launches_by_copy[mode] += 1
-
-
-matmul_kernel.launches = 0
-matmul_kernel.launches_by_copy = {width: 0 for width in COPY_WIDTHS}
+    KERNEL.launch(a.device.index, lambda: f"tile {tile}, shape {(m, k, n)}, copy mode {mode}",
+                  *tile, _DTYPE_CODE[a.dtype], _DTYPE_CODE[c.dtype], _COPY_CODE[mode],
+                  a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                  a.stride(0), b.stride(0), c.stride(0))

@@ -5,9 +5,9 @@ Replaces the reference's Pallas TPU kernel
 (``csrc/ssd.cu``) splits the TPU's sequential chunk axis into five passes
 (cumsum, C·Bᵀ scores once per B/C group, chunk states, state passing, chunk
 scan) with the products on the tensor cores as 3xTF32; its source note
-gives the bound and the design. This module builds it, binds it with
-``ctypes``, allocates its scratch and checks everything the kernel does not
-take.
+gives the bound and the design. This module declares its host side
+(:data:`KERNEL`), allocates its scratch and checks everything the kernel
+does not take.
 
 Two layouts, one kernel: the reference's head-flattened ``xbar [bh, s, p]``,
 ``logda [bh, s]``, ``B, C [bh, s, n]``, and the model layout
@@ -20,13 +20,12 @@ them; the output is in ``xbar``'s dtype.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 from typing import Tuple
 
 import torch
 
-from ..build import build_library
+from ..build import HandKernel
 from .ref import ssd_scan_ref
 
 #: Head dims p instantiated in csrc/ssd.cu (mamba2-1.3b uses 64).
@@ -43,34 +42,12 @@ PASSES = ("cumsum", "scores", "chunk_state", "state_passing", "chunk_scan")
 ALL_PASSES = (1 << len(PASSES)) - 1
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-
-
-def build() -> Path:
-    """Compile ``csrc/ssd.cu`` (once per source and flags) and return the
-    shared library's path."""
-    return build_library(SOURCE, BUILD_DIR)
-
-
-def bind(path: Path) -> ctypes.CDLL:
-    """Load a library built from ``csrc/ssd.cu`` and declare its C
-    function's arguments."""
-    lib = ctypes.CDLL(str(path))
-    fn = lib.repro_ssd_scan
-    fn.argtypes = (
-        [ctypes.c_int]
-        + [ctypes.c_void_p] * 8
-        + [ctypes.c_int] * 11
-        + [ctypes.c_longlong] * 12
-        + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    return bind(build())
+#: The scan's build, ``repro_ssd_scan`` and its launches, one key for the
+#: scan (:class:`repro_torch.kernels.build.HandKernel`).
+KERNEL = HandKernel(
+    "SSD", SOURCE, "repro_ssd_scan",
+    [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_longlong] * 12,
+    keys=("scan",))
 
 
 def heads_flat(
@@ -99,7 +76,7 @@ def ssd_scan_kernel(
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version :func:`~repro_torch.kernels.ssd.ref.ssd_scan_ref`.
-    ``ssd_scan_kernel.launches`` counts kernel launches.
+    ``KERNEL`` counts the scans.
     """
     model_layout = xbar.dim() == 4
     if model_layout:
@@ -140,7 +117,7 @@ def ssd_scan_kernel(
     if launch.y.numel() == 0:
         return launch.y.reshape(xbar.shape).to(xbar.dtype)
     launch(ALL_PASSES)
-    ssd_scan_kernel.launches += 1
+    KERNEL.count("scan")
     return launch.y.reshape(xbar.shape).to(xbar.dtype)
 
 
@@ -172,12 +149,7 @@ class _Launch:
         self.strides = [t.stride(i) for t in (x4, l3, b4, self.y) for i in (0, 2, 1)]  # b, h|g, s
 
     def __call__(self, passes: int) -> None:
-        dev = self.y.device
-        with torch.cuda.device(dev):
-            err = _library().repro_ssd_scan(*self.args, passes, *self.strides,
-                                            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"SSD kernel launch failed: error {err} for {self.what}")
+        KERNEL.launch(self.y.device.index, lambda: self.what, *self.args, passes, *self.strides)
 
 
 def _launcher(xbar, tensors, model_layout: bool, chunk: int) -> _Launch:
@@ -195,6 +167,3 @@ def pass_launcher(xbar, logda, b_mat, c_mat, *, chunk: int = 256) -> _Launch:
     and ``y``, then ``run(1 << k)`` repeats pass ``PASSES[k]`` on it. Counts
     no launch; the path goes through :func:`ssd_scan_kernel`."""
     return _launcher(xbar, (xbar, logda, b_mat, c_mat), True, min(chunk, xbar.shape[1]))
-
-
-ssd_scan_kernel.launches = 0

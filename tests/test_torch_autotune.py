@@ -20,14 +20,14 @@ from repro_torch.autotune import (  # noqa: E402
     rank_sites,
 )
 from repro_torch.core import CostModelTimer  # noqa: E402
-from repro_torch.kernels.matmul.matmul import SUPPORTED_TILES, matmul_kernel  # noqa: E402
+from repro_torch.kernels.matmul.matmul import KERNEL, SUPPORTED_TILES  # noqa: E402
 
 CPU_TILES = ((16, 16, 16), (32, 32, 32))
 
 
 def test_rank_site_on_cpu_site():
     site = matmul_blocks_site(64, 64, 64, blocks=CPU_TILES, device="cpu")
-    before = matmul_kernel.launches
+    before = KERNEL.launches
     # rt_threshold keeps every variant in the candidate set on a noisy CPU
     report = rank_site(site, max_measurements=6, rt_threshold=1e9)
     assert isinstance(report, TuneReport)
@@ -37,7 +37,7 @@ def test_rank_site_on_cpu_site():
     assert set(report.discriminant.relative_flops.values()) == {0.0}
     assert report.selected in names and report.backend == "wall-clock"
     assert "FLOPs discriminant" in report.summary()
-    assert matmul_kernel.launches == before  # CPU tensors take the plain version
+    assert KERNEL.launches == before  # CPU tensors take the plain version
 
 
 def test_matmul_blocks_site_workloads_compute_the_product():

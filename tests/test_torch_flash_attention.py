@@ -76,10 +76,10 @@ def test_plain_matches_the_tpu_kernel(bh, sq, skv, d, causal, win, cap, bq, bk, 
     assert out.dtype == tdtype
     _close(out, expect, tol)
     # the wrapper takes the plain version for CPU tensors, and launches nothing
-    before = fmod.flash_attention_kernel.launches
+    before = fmod.KERNEL.launches
     wrapped = fmod.flash_attention_kernel(q, k, v, block_q=bq, block_k=bk, **kw)
     assert torch.equal(wrapped, out)
-    assert fmod.flash_attention_kernel.launches == before
+    assert fmod.KERNEL.launches == before
 
 
 @pytest.mark.parametrize("bh,sq,skv,d,causal,win,cap,bq,bk", TRAPS)
@@ -390,8 +390,10 @@ def test_f32_copy_alignment_check():
         fmod.check_copy_alignment(1028)
 
 
-def test_launch_counters_reset_per_dtype():
-    fmod.flash_attention_kernel.launches_by_dtype["float32"] += 1
-    fmod.reset_counts()
-    assert fmod.flash_attention_kernel.launches == 0
-    assert fmod.flash_attention_kernel.launches_by_dtype == {"float32": 0, "bfloat16": 0}
+def test_launch_counters_reset_per_dtype(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    fmod.KERNEL.count("float32")
+    assert fmod.KERNEL.launches_by["float32"] >= 1
+    fmod.KERNEL.reset()
+    assert fmod.KERNEL.launches == 0
+    assert fmod.KERNEL.launches_by == {"float32": 0, "bfloat16": 0}

@@ -6,10 +6,16 @@ the pool that came back first, lists are kept per device, ``release_pools``
 empties them, taking a pool is one ``rt.graph.pool.*`` span, and threads
 that take and return pools at once lose none and share none.
 
+The hand kernels' launches and counts (``kernels/build.py``'s
+``HandKernel``), on the CPU with the bound C function faked: each wrapper's
+call matches its kernel's declared arguments, a nonzero return raises
+naming the kernel, and ``reset`` zeroes every count.
+
 On the card (marked ``cuda``, skipped without one): a second build of the
 same chain instance allocates no device memory, an output kept past its
-graph survives the next instance's capture into the recycled pool, and
-``release_pools`` with ``empty_cache`` gives the pools' memory back.
+graph survives the next instance's capture into the recycled pool,
+``release_pools`` with ``empty_cache`` gives the pools' memory back, and
+each hand kernel launched inside ``graphs.capture`` counts once a replay.
 """
 
 import gc
@@ -24,6 +30,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import graphs
 from repro_torch.expressions import build_workloads, generate_chain_algorithms, make_chain_inputs
+from repro_torch.kernels.flash_attention import flash_attention as fmod
+from repro_torch.kernels.matmul import matmul as kmod
+from repro_torch.kernels.ssd import ssd as smod
 
 
 class Owner:
@@ -161,6 +170,78 @@ def test_threads_taking_and_returning_pools_lose_none_and_share_none(stub_pools)
     assert sorted(free(0)) == sorted(stub_pools)
 
 
+# --- the hand kernels' launches and counts --------------------------------
+
+
+def _launch_gemm():
+    a, b = torch.randn(8, 8), torch.randn(8, 8)
+    kmod.launch(a, b, torch.empty(8, 8), (16, 16, 16), kmod.SHIFT)
+
+
+def _launch_flash():
+    q, kv = torch.randn(1, 128, 4, 32), torch.randn(1, 128, 2, 32)
+    fmod.launch(q, kv, kv, torch.empty_like(q), causal=True, sm_scale=None, logit_cap=30.0, window=64)
+
+
+def _launch_ssd():
+    bc = torch.randn(1, 64, 1, 8)
+    smod.pass_launcher(torch.randn(1, 64, 2, 16), -torch.rand(1, 64, 2), bc, bc, chunk=32)(smod.ALL_PASSES)
+
+
+#: each kernel's module and one launch by its wrapper's own launcher
+LAUNCHES = {"gemm": (kmod, _launch_gemm), "flash": (fmod, _launch_flash), "ssd": (smod, _launch_ssd)}
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The CUDA calls of a launch and a count, answered on the CPU: no
+    stream is being captured, CPU tensors' device (index None) is the
+    current one, and its current stream is 7."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
+
+
+@pytest.mark.parametrize("name", sorted(LAUNCHES))
+def test_each_wrapper_calls_its_function_with_the_declared_arguments(name, fake_card, monkeypatch):
+    mod, launch = LAUNCHES[name]
+    calls = []
+    monkeypatch.setattr(mod.KERNEL, "fn", lambda *args: calls.append(args) or 0)
+    before = mod.KERNEL.launches
+    launch()
+    (args,) = calls
+    assert len(args) == len(mod.KERNEL.argtypes) and args[-1] == 7  # the stream last
+    for ctype, arg in zip(mod.KERNEL.argtypes, args):
+        ctype(arg)  # raises on a value the declared type does not take
+    assert mod.KERNEL.launches == before  # a launch alone counts nothing
+
+
+@pytest.mark.parametrize("name,err,words", [
+    ("gemm", 700, "GEMM kernel launch failed: error 700 (CUDA error) for tile (16, 16, 16)"),
+    ("flash", -3, "flash-attention kernel launch failed: error -3 (a TMA tensor map could not be encoded)"),
+    ("flash", 1, "flash-attention kernel launch failed: error 1 (CUDA error) for q (1, 128, 4, 32)"),
+    ("ssd", 98, "SSD kernel launch failed: error 98 (CUDA error) for xbar (1, 64, 2, 16)"),
+])
+def test_a_nonzero_return_raises_naming_the_kernel(name, err, words, fake_card, monkeypatch):
+    mod, launch = LAUNCHES[name]
+    monkeypatch.setattr(mod.KERNEL, "fn", lambda *args: err)
+    with pytest.raises(RuntimeError) as raised:
+        launch()
+    assert words in str(raised.value)
+
+
+@pytest.mark.parametrize("name", sorted(LAUNCHES))
+def test_reset_zeroes_every_count(name, fake_card):
+    kernel = LAUNCHES[name][0].KERNEL
+    kernel.reset()
+    for key in kernel.keys:
+        kernel.count(key)
+        kernel.count(key)
+    assert kernel.launches == 2 * len(kernel.keys) and set(kernel.launches_by.values()) == {2}
+    kernel.reset()
+    assert kernel.launches == 0 and kernel.launches_by == dict.fromkeys(kernel.keys, 0)
+
+
 # --- on the card ---------------------------------------------------------
 
 
@@ -244,3 +325,34 @@ def test_release_pools_and_empty_cache_give_the_memory_back():
     graphs.release_pools()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved(dev) == base
+
+
+@pytest.mark.cuda
+def test_each_hand_kernel_in_a_capture_counts_once_a_replay():
+    """Flash attention (both dtypes), the SSD scan and the GEMM launched
+    inside ``graphs.capture``: each replay counts one launch, under its
+    key, and gives the eager launch's output bit for bit."""
+    dev = needs_card()
+    gen = torch.Generator(device=dev).manual_seed(32)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def flash(dtype):
+        q, kv = randn(1, 256, 4, 64, dtype=dtype), randn(1, 256, 2, 64, dtype=dtype)
+        return lambda: fmod.flash_attention_kernel(q, kv, kv)
+
+    bc = randn(1, 256, 2, 64)
+    xbar, logda = randn(1, 256, 4, 64), -randn(1, 256, 4).abs()
+    a, b = randn(256, 128), randn(128, 192)  # rows on 16-byte boundaries: copy mode 16
+    cases = [(fmod, "float32", flash(torch.float32)), (fmod, "bfloat16", flash(torch.bfloat16)),
+             (smod, "scan", lambda: smod.ssd_scan_kernel(xbar, logda, bc, bc, chunk=64)),
+             (kmod, 16, lambda: kmod.matmul_kernel(a, b))]
+    for mod, key, fn in cases:
+        eager = fn()
+        replay = graphs.capture(fn, dev)
+        mod.KERNEL.reset()
+        for _ in range(3):
+            out = replay()
+        assert (mod.KERNEL.launches, mod.KERNEL.launches_by[key]) == (3, 3), (mod.__name__, key)
+        assert torch.equal(out, eager), (mod.__name__, key)

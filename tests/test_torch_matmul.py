@@ -19,6 +19,7 @@ from repro.kernels.matmul.ops import chain_matmul as ref_chain_matmul  # noqa: E
 from repro.kernels.matmul.ops import matmul as ref_matmul  # noqa: E402
 from repro_torch.autotune import matmul_blocks_site  # noqa: E402
 from repro_torch.expressions import inputs_from_reference  # noqa: E402
+from repro_torch.kernels.build import NVCC_FLAGS  # noqa: E402
 from repro_torch.kernels.matmul import matmul as kmod  # noqa: E402
 from repro_torch.kernels.matmul.ops import chain_matmul, matmul  # noqa: E402
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
@@ -81,12 +82,12 @@ def test_chain_matmul_parity():
 @pytest.mark.parametrize("out_dtype", [None, torch.float32, torch.bfloat16])
 def test_cpu_tensors_take_the_plain_version(tile, out_dtype):
     a, b = torch.randn(33, 47), torch.randn(47, 21)
-    before = kmod.matmul_kernel.launches
+    before = kmod.KERNEL.launches
     out = kmod.matmul_kernel(a, b, block_m=tile[0], block_n=tile[1], block_k=tile[2],
                              out_dtype=out_dtype)
     assert torch.equal(out, matmul_ref(a, b, out_dtype))
     assert out.dtype == (out_dtype or torch.float32)
-    assert kmod.matmul_kernel.launches == before  # the plain version is no launch
+    assert kmod.KERNEL.launches == before  # the plain version is no launch
 
 
 @pytest.mark.parametrize("tile", [(128, 128, 128), (256, 256, 512), (256, 256, 256),
@@ -133,7 +134,7 @@ def test_kernel_source_instantiates_exactly_the_supported_tiles():
              for t in re.findall(r"^\s*REPRO_TILE\((\d+), (\d+), (\d+)\)\s*$", src, re.M)}
     assert tiles == set(kmod.SUPPORTED_TILES)
     assert kmod.DEFAULT_TILE in kmod.SUPPORTED_TILES
-    assert "-gencode=arch=compute_90a,code=sm_90a" in kmod.NVCC_FLAGS
+    assert "-gencode=arch=compute_90a,code=sm_90a" in NVCC_FLAGS
     table = _tile_table(src)
     assert set(table) == set(kmod.SUPPORTED_TILES)
     # the design: 1 warp at 16^3, 4 at 32^3 and 64^3, 8 at the 128 x 128 tiles
@@ -413,7 +414,7 @@ def test_copy_mode_leaves_bf16_as_copy_bytes_has_it(m, k, n):
 
 def test_copy_modes_are_the_launch_counters_keys():
     assert kmod.COPY_WIDTHS == (16, kmod.SHIFT, 4)
-    assert set(kmod.matmul_kernel.launches_by_copy) == set(kmod.COPY_WIDTHS)
+    assert set(kmod.KERNEL.launches_by) == set(kmod.COPY_WIDTHS)
 
 
 # The shifted loader (gemm.cu's load_tile_shifted and the fragment shifts),

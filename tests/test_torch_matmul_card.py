@@ -77,12 +77,12 @@ def test_a_verdict_of_the_pools_first_chain_copies_no_f32_row_by_4_bytes():
     dims = POOL_FIRST_CHAIN
     algs = generate_chain_algorithms(dims)
     mats = make_chain_inputs(dims, seed=3, device=dev)
-    before = dict(kmod.matmul_kernel.launches_by_copy)
+    before = dict(kmod.KERNEL.launches_by)
     workloads = build_workloads(algs, mats, jit=True, gemm=ops.matmul)
     timer = WallClockTimer(workloads)
     single = {name: timer.measure(name) for name in workloads}
     result = measure_and_rank(initial_hypothesis_by_time(single), timer, max_measurements=6)
     flops_discriminant_test(result, flops_table(algs))
     torch.cuda.synchronize()
-    counted = {mode: kmod.matmul_kernel.launches_by_copy[mode] - before[mode] for mode in kmod.COPY_WIDTHS}
+    counted = {mode: kmod.KERNEL.launches_by[mode] - before[mode] for mode in kmod.COPY_WIDTHS}
     assert counted[4] == 0 and counted[16] == 0 and counted[kmod.SHIFT] > 0, counted
