@@ -24,6 +24,10 @@ An :class:`AlgorithmFamily` supplies, for one family name:
     (:func:`repro_torch.core.sweep.synthetic_instance_model`) consume only
     the FLOP table and kernel counts, so cost-model census workers never
     allocate a single tensor.
+``prefetch``
+    host work the builds of a census chunk's instances will wait for,
+    started before the first is built (the chain family's matrix draws;
+    nothing elsewhere).
 ``decompose``
     kernels per algorithm purely from the instance's ``params`` row — the
     explainer's offline rebuild path (no device, no re-measurement).
@@ -117,6 +121,10 @@ class AlgorithmFamily:
         calling the returned builder (with a device) touches a device."""
         raise NotImplementedError
 
+    def prefetch(self, insts: Sequence[InstanceSpec]) -> None:
+        """Start, on the host, what the builds of ``insts`` (in the order
+        they will be built) will wait for. Default: nothing."""
+
     def decompose(self, params: Mapping[str, Any]) -> Dict[str, Any]:
         """KernelSpecs per algorithm, purely from the params row."""
         raise NotImplementedError
@@ -205,12 +213,9 @@ class ChainFamily(AlgorithmFamily):
         rebuild pointer."""
         from repro_torch.explain.decompose import decompose_chain, kernels_to_compact
         from repro_torch.expressions.chain import flops_table
-        from repro_torch.expressions.instances import random_instance
 
         p = inst.params
-        chain = random_instance(
-            int(p["n_matrices"]), int(p["lo"]), int(p["hi"]), seed=int(p["seed"])
-        )
+        chain = self._chain(inst)
         algs = chain.algorithms()
         flops = flops_table(algs)
         dims = list(chain.dims)
@@ -229,6 +234,25 @@ class ChainFamily(AlgorithmFamily):
         meta = {"size": size, "dims": dims, "kernels": kernels}
         return flops, meta, build_workloads
 
+    def prefetch(self, insts: Sequence[InstanceSpec]) -> None:
+        """The instances' matrices drawn ahead on host threads, where the
+        census's builds run inside
+        :func:`~repro_torch.expressions.algorithms.drawing_ahead` on a
+        CUDA device; their builds take them with the same bytes."""
+        from repro_torch.expressions.algorithms import plan_chain_inputs
+
+        plan_chain_inputs([(self._chain(i).dims, int(i.params["seed"])) for i in insts])
+
+    @staticmethod
+    def _chain(inst: InstanceSpec):
+        """The instance's :class:`~repro_torch.expressions.instances.ChainInstance`."""
+        from repro_torch.expressions.instances import random_instance
+
+        p = inst.params
+        return random_instance(
+            int(p["n_matrices"]), int(p["lo"]), int(p["hi"]), seed=int(p["seed"])
+        )
+
     def decompose(self, params: Mapping[str, Any]) -> Dict[str, Any]:
         from repro_torch.explain.decompose import _chain_instance_dims, decompose_chain_dims
 
@@ -246,12 +270,9 @@ class ChainFamily(AlgorithmFamily):
         wall-clock explanation, so chains build the involved thunks
         selectively (``jit=True``: one CUDA graph each on the card)."""
         from repro_torch.expressions.algorithms import build_algorithm_fn, make_chain_inputs
-        from repro_torch.expressions.instances import random_instance
 
         p = inst.params
-        chain = random_instance(
-            int(p["n_matrices"]), int(p["lo"]), int(p["hi"]), seed=int(p["seed"])
-        )
+        chain = self._chain(inst)
         algs = {a.name: a for a in chain.algorithms()}
         mats = make_chain_inputs(chain.dims, seed=int(p["seed"]), device=device)
         out: Dict[str, Callable[[], Any]] = {}

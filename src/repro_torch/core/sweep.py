@@ -57,6 +57,7 @@ inside the builders, and only the wall-clock backend executes any.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -64,7 +65,9 @@ import os
 import time
 import zlib
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+from typing import (
+    Any, Callable, ContextManager, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 
@@ -934,13 +937,26 @@ def _wall_clock_timers(
     device: DeviceLike = "cuda",
 ) -> Dict[str, Timer]:
     """Rebuild wall-clock backends for a resumed engine chunk (callables do
-    not serialize; everything derives from the spec and the device)."""
+    not serialize; everything derives from the spec and the device). The
+    chunk's host work is started first (:func:`_prefetch`)."""
+    uids = list(uids)
+    _prefetch(instances, uids)
     timers: Dict[str, Timer] = {}
     for uid in uids:
         inst = instances[uid]
         flops, _, build_workloads = instance_entry(inst)
         timers[uid] = WallClockTimer(build_workloads(device))
     return timers
+
+
+def _prefetch(instances: Mapping[str, InstanceSpec], uids: Sequence[str]) -> None:
+    """Each family's :meth:`~repro_torch.core.family.AlgorithmFamily.prefetch`
+    for its instances among ``uids``, in build order."""
+    by_family: Dict[str, List[InstanceSpec]] = {}
+    for uid in uids:
+        by_family.setdefault(instances[uid].family, []).append(instances[uid])
+    for name, insts in by_family.items():
+        get_family(name).prefetch(insts)
 
 
 def run_chunked_campaign(
@@ -960,6 +976,7 @@ def run_chunked_campaign(
     timings: Optional[Dict[str, float]] = None,
     faults: Optional[FaultPlan] = None,
     predictor: Optional[Callable[[str], Optional[Dict[str, Any]]]] = None,
+    start_chunk: Optional[Callable[[Sequence[str]], None]] = None,
 ) -> bool:
     """The shared chunk/resume/save/append loop behind every sharded
     campaign (census shards AND anomaly explanations — one copy of the
@@ -1006,6 +1023,10 @@ def run_chunked_campaign(
     only ever contain gate-rejected uids. The skipped count is announced
     via ``progress`` and lands in the manifest's per-family ``predicted``
     tallies — never silent.
+
+    ``start_chunk``, if given, is called with a new chunk's uids before its
+    first session is built (the census's draw-ahead, :func:`run_shard`).
+    Every session of a chunk is built before its first engine step.
     """
     say = progress or (lambda msg: None)
     beat = heartbeat or (lambda *a: None)
@@ -1070,6 +1091,8 @@ def run_chunked_campaign(
                 break
             engine = ExperimentEngine(policy=policy)
             t0 = time.perf_counter()
+            if start_chunk is not None:
+                start_chunk(chunk)
             for uid in chunk:
                 beat()
                 engine.add_session(build_session(uid))
@@ -1141,14 +1164,25 @@ def run_shard(
     ``predictor_model`` set (an active census) installs the predict gate:
     the instances it skips are predicted on the host, the rest measured on
     ``device``.
+
+    On a CUDA device the wall-clock backend draws each chunk's chain
+    matrices ahead on host threads while the instances before them are
+    built (:func:`repro_torch.expressions.algorithms.drawing_ahead`): the
+    same bytes, every draw taken before the chunk's first engine step, and
+    no draw thread left when this returns.
     """
     if faults is None:
         faults = active_plan()
     store = ShardStore(root, shard, fsync=spec.fsync, faults=faults).open()
     instances = {i.uid: i for i in spec.shard_instances(shard)}
-    rebuild = None
+    rebuild = start_chunk = None
+    drawing: ContextManager = contextlib.nullcontext()
     if spec.backend == "wall_clock":
+        from repro_torch.expressions.algorithms import drawing_ahead
+
         rebuild = lambda uids: _wall_clock_timers(spec, instances, uids, device)
+        start_chunk = lambda uids: _prefetch(instances, uids)
+        drawing = drawing_ahead(device)
     predictor = None
     if spec.predictor_model:
         # lazy: repro_torch.predict imports back into this module
@@ -1156,23 +1190,25 @@ def run_shard(
 
         predictor = census_gate(spec, instances)
     timings: Dict[str, float] = {}
-    run_chunked_campaign(
-        store,
-        list(instances),
-        lambda uid: build_sweep_session(spec, instances[uid], device),
-        lambda session: record_from_session(session, spec),
-        chunk_size=spec.chunk_size,
-        save_every=spec.save_every,
-        policy=spec.policy,
-        rebuild_timers=rebuild,
-        max_steps=max_steps,
-        progress=progress,
-        label=f"shard {shard}",
-        heartbeat=heartbeat,
-        timings=timings,
-        faults=faults,
-        predictor=predictor,
-    )
+    with drawing:
+        run_chunked_campaign(
+            store,
+            list(instances),
+            lambda uid: build_sweep_session(spec, instances[uid], device),
+            lambda session: record_from_session(session, spec),
+            chunk_size=spec.chunk_size,
+            save_every=spec.save_every,
+            policy=spec.policy,
+            rebuild_timers=rebuild,
+            max_steps=max_steps,
+            progress=progress,
+            label=f"shard {shard}",
+            heartbeat=heartbeat,
+            timings=timings,
+            faults=faults,
+            predictor=predictor,
+            start_chunk=start_chunk,
+        )
     if timings:
         store.add_timings(timings)
     return store

@@ -18,8 +18,15 @@ device's activity:
   (:meth:`repro_torch.core.session.MeasurementSession.step`);
 - ``rt.rank.update``: its host work after the batch (store, shuffle, mean
   ranks, convergence norm, record);
-- ``rt.inputs``: a chain instance's matrices drawn on the host and copied
-  to the device (:func:`repro_torch.expressions.algorithms.make_chain_inputs`);
+- ``rt.inputs``: what the caller's thread spends on a chain instance's
+  matrices (:func:`repro_torch.expressions.algorithms.make_chain_inputs`):
+  the draw on the host and the copy to the device, or, in a census on a
+  CUDA device, which draws ahead on host threads, the wait for the rest of
+  the instance's draw, if any, and the copy; a draw thread opens no span;
+- ``rt.inputs.ready`` or ``rt.inputs.waited``: zero-length, inside it,
+  one per instance taken from the draw-ahead
+  (:meth:`~repro_torch.expressions.algorithms.DrawAhead.take`): its draw
+  had finished when the build asked, or had not: counters;
 - ``rt.mla.cache``: latent attention's new latent rows written into its
   cache; ``rt.mla.expand``: the cached latents expanded into per-head K and
   V (the decompressed order); ``rt.mla.absorb``: W_UK folded into the

@@ -8,6 +8,8 @@ output's scale). The wall-clock backend runs here on the CPU
 (``device="cpu"``: every wrapper takes its plain version), and every
 refusal the port adds is held to its message."""
 
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -17,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import repro.core.sweep as ref_sweep  # noqa: E402
 import repro_torch.core.sweep as port_sweep  # noqa: E402
+import repro_torch.expressions.algorithms as algorithms  # noqa: E402
 from repro.core.family import get_family as ref_family  # noqa: E402
 from repro.explain import decompose as ref_decompose  # noqa: E402
 from repro_torch.core.family import family_names, get_family  # noqa: E402
@@ -323,3 +326,208 @@ def test_census_tables_render_the_port_store(tmp_path):
     records = port_sweep.merge_shards(spec, str(tmp_path))
     assert census_tables(records, name="t") == ref_tables(records, name="t")
     assert port_sweep.census_summary(records) == ref_sweep.census_summary(records)
+
+
+# ------------------------------------------------------------ draw-ahead ---
+
+DRAW_PREFIX = "rt-draw"
+
+
+def _draw_threads():
+    return [t for t in threading.enumerate() if t.name.startswith(DRAW_PREFIX)]
+
+
+def _mixed_jobs(n=8):
+    """(dims, seed) of ``n`` chain instances of 3 to 5 matrices, dims in [8, 64]."""
+    rng = np.random.default_rng(7)
+    return [(tuple(int(d) for d in rng.integers(8, 65, size=int(rng.integers(4, 7)))), 100 + k)
+            for k in range(n)]
+
+
+def _wait_for(cond, what, timeout=20.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.005)
+
+
+def _cores(monkeypatch, n):
+    """Usable cores seen by the draw-ahead: ``n`` (so ``n - 1`` workers)."""
+    monkeypatch.setattr(algorithms.os, "sched_getaffinity", lambda pid: set(range(n)))
+
+
+def test_draw_ahead_hands_back_the_serial_draws_whatever_order_they_finish(monkeypatch):
+    """Eight instances of mixed dims: the first draw is held until the other
+    started draws have finished, and every instance still comes back
+    ``torch.equal`` to the serial ``make_chain_inputs(..., device="cpu")``."""
+    jobs = _mixed_jobs()
+    real, finished, lock = algorithms.draw_chain_inputs, [], threading.Lock()
+    _cores(monkeypatch, 4)
+
+    def delayed(dims, seed):
+        if seed == jobs[0][1]:  # the first job finishes after the others it started with
+            _wait_for(lambda: len(finished) >= ahead.workers - 1, "the other draws never finished")
+        out = real(dims, seed)
+        with lock:
+            finished.append(seed)
+        return out
+
+    monkeypatch.setattr(algorithms, "draw_chain_inputs", delayed)
+    ahead = algorithms.DrawAhead()
+    try:
+        ahead.plan(jobs)
+        assert ahead.workers == 3
+        got = [ahead.take(dims, seed) for dims, seed in jobs]
+    finally:
+        ahead.close()
+    assert finished[0] != jobs[0][1] and sorted(finished) == sorted(s for _, s in jobs)
+    for (dims, seed), mats in zip(jobs, got):
+        want = algorithms.make_chain_inputs(dims, seed=seed, device="cpu")
+        assert len(mats) == len(want) == len(dims) - 1
+        assert all(m.dtype == torch.float32 and torch.equal(m, w) for m, w in zip(mats, want))
+    assert not _draw_threads()
+
+
+def test_draw_ahead_holds_at_most_workers_instances_untaken(monkeypatch):
+    """An instrumented draw that finishes at once: with 4 usable cores (3
+    workers), 3 draws start at the plan and one more after each take, so
+    never more than 3 instances are drawn and not yet taken."""
+    jobs = _mixed_jobs()
+    real, started, lock = algorithms.draw_chain_inputs, [], threading.Lock()
+    _cores(monkeypatch, 4)
+
+    def counted(dims, seed):
+        with lock:
+            started.append(seed)
+        return real(dims, seed)
+
+    monkeypatch.setattr(algorithms, "draw_chain_inputs", counted)
+    ahead = algorithms.DrawAhead()
+    try:
+        ahead.plan(jobs)
+        assert ahead.workers == 3
+        for taken in range(len(jobs) + 1):
+            expect = min(ahead.workers + taken, len(jobs))
+            _wait_for(lambda: len(started) >= expect, f"{expect} draws never started")
+            time.sleep(0.05)  # room for a draw the bound forbids to start
+            assert len(started) == expect
+            if taken < len(jobs):
+                assert ahead.take(*jobs[taken]) is not None
+    finally:
+        ahead.close()
+    assert sorted(started) == sorted(s for _, s in jobs)
+
+
+def test_draw_ahead_raises_a_draw_fault_at_its_take(monkeypatch):
+    """A worker's exception is raised on the caller when that instance is
+    taken, not before; the instances before it come back whole."""
+    jobs = _mixed_jobs(3)
+    real, raised_on = algorithms.draw_chain_inputs, []
+
+    def faulty(dims, seed):
+        if seed == jobs[1][1]:
+            raised_on.append(threading.current_thread())
+            raise RuntimeError(f"planted draw fault {seed}")
+        return real(dims, seed)
+
+    monkeypatch.setattr(algorithms, "draw_chain_inputs", faulty)
+    ahead = algorithms.DrawAhead()
+    try:
+        ahead.plan(jobs)
+        assert ahead.take(*jobs[0]) is not None
+        with pytest.raises(RuntimeError, match="planted draw fault"):
+            ahead.take(*jobs[1])
+        assert ahead.take(*jobs[2]) is not None
+    finally:
+        ahead.close()
+    assert raised_on and raised_on[0] is not threading.main_thread()
+    assert not _draw_threads()
+
+
+CHAIN_SPEC = dict(backend="wall_clock", n_shards=1, chunk_size=2, max_measurements=6,
+                  eps=-1.0,  # never converges: each session takes exactly 2 steps
+                  families={"chain": {"count": 4, "n_matrices": [3, 4], "lo": 8, "hi": 40}})
+
+
+def _recorded_builds(monkeypatch):
+    """Wrap the draw and ``build_workloads``: the threads each draw ran on,
+    and whether each build's matrices equal the serial CPU draw."""
+    real_draw, real_build = algorithms.draw_chain_inputs, algorithms.build_workloads
+    seen = {"draw_threads": [], "builds": []}
+    serial = {}  # dims -> the serial CPU draw, made before the draw is wrapped
+    for inst in port_sweep.SweepSpec(**CHAIN_SPEC).expand():
+        dims = tuple(get_family("chain").entry(inst)[1]["dims"])
+        serial[dims] = algorithms.make_chain_inputs(dims, seed=inst.params["seed"], device="cpu")
+
+    def draw(dims, seed):
+        seen["draw_threads"].append((threading.current_thread(), _draw_threads()))
+        return real_draw(dims, seed)
+
+    def build(algs, mats, **kw):
+        dims = [m.shape[0] for m in mats] + [mats[-1].shape[1]]
+        want = serial[tuple(dims)]
+        seen["builds"].append(len(mats) == len(want)
+                              and all(torch.equal(m, w) for m, w in zip(mats, want)))
+        return real_build(algs, mats, **kw)
+
+    monkeypatch.setattr(algorithms, "draw_chain_inputs", draw)
+    monkeypatch.setattr(algorithms, "build_workloads", build)
+    return seen
+
+
+def test_cpu_census_draws_on_the_caller_and_starts_no_thread(tmp_path, monkeypatch):
+    """A wall-clock census on the CPU draws each instance serially on the
+    caller's thread: no draw thread is ever started."""
+    seen = _recorded_builds(monkeypatch)
+    port_sweep.run_shard(port_sweep.SweepSpec(**CHAIN_SPEC), str(tmp_path), 0, device="cpu")
+    assert len(seen["draw_threads"]) == len(seen["builds"]) == 4 and all(seen["builds"])
+    assert all(t is threading.main_thread() and not live for t, live in seen["draw_threads"])
+
+
+def _forced(monkeypatch):
+    """The draw-ahead engaged on the CPU, as on a CUDA device."""
+    monkeypatch.setattr(algorithms, "draws_ahead", lambda device: True)
+
+
+def test_census_draw_fault_surfaces_and_leaves_no_draw_thread(tmp_path, monkeypatch):
+    _forced(monkeypatch)
+    real = algorithms.draw_chain_inputs
+    raised_on = []
+
+    def faulty(dims, seed):
+        if seed == 1:
+            raised_on.append(threading.current_thread())
+            raise RuntimeError("planted draw fault")
+        return real(dims, seed)
+
+    monkeypatch.setattr(algorithms, "draw_chain_inputs", faulty)
+    with pytest.raises(RuntimeError, match="planted draw fault"):
+        port_sweep.run_shard(port_sweep.SweepSpec(**CHAIN_SPEC), str(tmp_path), 0, device="cpu")
+    assert raised_on and raised_on[0].name.startswith(DRAW_PREFIX)
+    assert not _draw_threads()
+
+
+def test_census_draws_ahead_counts_each_build_once_under_the_profiler(tmp_path, monkeypatch):
+    """The draw-ahead engaged on the CPU: a census paused mid-chunk and
+    resumed builds 6 instances (2, the paused chunk's 2 again on resume,
+    2), each from matrices equal to the serial draw, drawn on draw threads;
+    under ``torch.profiler`` ``rt.inputs.ready`` + ``rt.inputs.waited``
+    equals the instances built and the ``rt.inputs`` spans; no draw thread
+    outlives ``run_shard``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _forced(monkeypatch)
+    seen = _recorded_builds(monkeypatch)
+    spec = port_sweep.SweepSpec(**CHAIN_SPEC)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        port_sweep.run_shard(spec, str(tmp_path), 0, max_steps=3, device="cpu")
+        assert not _draw_threads()
+        assert port_sweep.ShardStore(str(tmp_path), 0).has_engine_state()
+        port_sweep.run_shard(spec, str(tmp_path), 0, device="cpu")
+    assert not _draw_threads()
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    counters = names.count("rt.inputs.ready") + names.count("rt.inputs.waited")
+    assert counters == names.count("rt.inputs") == len(seen["builds"]) == 6
+    assert all(seen["builds"])
+    assert all(t.name.startswith(DRAW_PREFIX) for t, _ in seen["draw_threads"])
+    assert len(port_sweep.ShardStore(str(tmp_path), 0).open().records) == 4
