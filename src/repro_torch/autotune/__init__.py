@@ -3,7 +3,8 @@ variant selector (measured or cost-modelled), campaign-capable via the
 core ExperimentEngine. ``tuner`` is a copy of the reference's; ``variants``
 carries the ``attention_impl``, ``moe_dispatch`` and ``ssd_chunk`` sites,
 the ``matmul_blocks`` site on the hand-written Hopper GEMM, and the port's
-own ``mla`` site (latent attention's absorbed and decompressed orders)."""
+own ``mla`` site (latent attention's absorbed and decompressed orders) and
+``kda_chunk`` site (Kimi Delta Attention's chunk length)."""
 
 from .tuner import (
     CampaignSite,
@@ -20,6 +21,7 @@ from .variants import (
     Variant,
     VariantSite,
     attention_site,
+    kda_chunk_site,
     matmul_blocks_site,
     mla_site,
     moe_dispatch_site,
@@ -33,6 +35,7 @@ __all__ = [
     "VariantSite",
     "attention_site",
     "build_session",
+    "kda_chunk_site",
     "matmul_blocks_site",
     "mla_site",
     "moe_dispatch_site",

@@ -18,12 +18,15 @@ analytic FLOP count, so the FLOPs-discriminant test applies directly.
   materialised or blockwise scores (``models/mla.py``), for an extend
   step against a latent cache: FLOPs cross over with the new tokens
   against the cache's length, and are equal inside an order.
+* ``kda_chunk`` — Kimi Delta Attention's chunk length (``models/kda.py``):
+  the intra-chunk work grows with the chunk, the sequential state pass
+  shortens with it, so the fewest FLOPs come with the longest loop.
 * ``matmul_blocks`` — the hand-written Hopper GEMM's tile shapes plus the
   library baseline ``torch_matmul`` (cuBLAS; the reference's ``xla_dot``):
   equal FLOPs exactly.
 
 Like the reference's, the attention, MoE and SSD sites time the plain
-model code; none has a kernel variant. The MLA site is the port's own. Each variant's timed thunk is the
+model code; none has a kernel variant. The MLA and KDA sites are the port's own. Each variant's timed thunk is the
 reference's jitted thunk as one CUDA graph on the card
 (:func:`~repro_torch.graphs.measured_thunk`), eager on the CPU.
 """
@@ -31,6 +34,7 @@ reference's jitted thunk as one CUDA graph on the card
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -41,7 +45,8 @@ from ..kernels.matmul.matmul import check_tile
 from ..kernels.matmul.ops import matmul
 from ..models.attention import attention_chunked, attention_reference
 from ..models.config import ModelConfig
-from ..models.flops import mla_algorithm_flops
+from ..models.flops import kda_chunk_flops, mla_algorithm_flops
+from ..models.kda import kda_chunked, l2_normalize
 from ..models.layers import split_params
 from ..models.mamba2 import ssd_chunked
 from ..models.mla import ALGORITHMS, init_mla, mla_attention
@@ -254,6 +259,55 @@ def mla_site(
     return VariantSite(
         name=f"mla[q{q} L{L} b{b}]",
         variants=tuple(Variant(name, flops[name], make(name), {"algorithm": name}) for name in ALGORITHMS),
+        make_inputs=inputs,
+    )
+
+
+# ------------------------------------------------------------- KDA site ----
+
+def kda_chunk_site(
+    b: int = 1, s: int = 16384, h: int = 32, dk: int = 128, dv: int = 128,
+    chunks: Sequence[int] = (32, 64, 128),
+    dtype: torch.dtype = torch.float32,
+    device: DeviceLike = "cuda",
+) -> VariantSite:
+    """The model path's chunked KDA core (:func:`~repro_torch.models.kda.kda_chunked`)
+    on ``b`` sequences of ``s`` new tokens, each continuing from its own
+    incoming state, at each chunk length of ``chunks``. Inputs (q, k, v, g,
+    beta, state), as the mixer gives them: q and k L2-normalised (q scaled
+    by dk^-1/2), v normal, g = -A softplus(z + dt_bias) with A in [1, 16]
+    per head, softplus(dt_bias) log-uniform in [1e-3, 1e-1] per channel and
+    z normal with std 0.2, beta = sigmoid(normal), the state normal. A
+    thunk returns (o, final state); the widths default to
+    kimi-linear-48b-a3b's."""
+    dev = resolve_device(device)
+
+    def inputs(seed: int):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def normal(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        q = l2_normalize(normal(b, s, h, dk)) * dk ** -0.5
+        k = l2_normalize(normal(b, s, h, dk))
+        v = normal(b, s, h, dv)
+        a = torch.rand((h, 1), generator=gen, device=dev) * 15.0 + 1.0
+        rate = torch.exp(torch.rand((h, dk), generator=gen, device=dev) * math.log(100.0) + math.log(1e-3))
+        dt_bias = rate + torch.log(-torch.expm1(-rate))                 # softplus⁻¹(rate)
+        g = -a * torch.nn.functional.softplus(normal(b, s, h, dk) * 0.2 + dt_bias)
+        beta = torch.sigmoid(normal(b, s, h))
+        state = normal(b, h, dk, dv)
+        return [t.to(dtype) for t in (q, k, v, g, beta, state)]
+
+    def make(chunk):
+        def build(q, k, v, g, beta, state):
+            return measured_thunk(lambda *t: kda_chunked(*t[:5], chunk, t[5]), q, k, v, g, beta, state)
+        return build
+
+    return VariantSite(
+        name=f"kda_chunk[b{b} s{s} h{h} dk{dk}]",
+        variants=tuple(Variant(f"chunk_{c}", kda_chunk_flops(b, s, h, dk, dv, c), make(c), {"chunk": c})
+                       for c in chunks),
         make_inputs=inputs,
     )
 

@@ -29,6 +29,7 @@ _MODULES = {
     "jamba-v0.1-52b": "jamba_v01_52b",
     "mamba2-1.3b": "mamba2_1_3b",
     "deepseek-v2-lite": "deepseek_v2_lite",
+    "kimi-linear-48b-a3b": "kimi_linear_48b_a3b",
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

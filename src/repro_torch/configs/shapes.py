@@ -56,6 +56,9 @@ SKIPS: Dict[Tuple[str, str], str] = {
 ARCH_SKIPS: Dict[str, str] = {
     "deepseek-v2-lite": "latent attention has no sharding plan yet: its latent cache, absorbed "
                         "and decompressed attention run on one device only",
+    "kimi-linear-48b-a3b": "Kimi Delta Attention has no sharding plan yet: its recurrent and "
+                           "convolution states, and the latent cache beside them, run on one "
+                           "device only",
 }
 SKIPS.update({(arch, shape): reason for arch, reason in ARCH_SKIPS.items() for shape in SHAPES})
 

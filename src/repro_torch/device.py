@@ -30,11 +30,13 @@ def resolve_device(device: DeviceLike) -> "torch.device":
 
 
 def block(out: "torch.Tensor") -> "torch.Tensor":
-    """Wait until ``out`` is computed: ``torch.cuda.synchronize()`` for a
-    CUDA tensor (kernels are queued asynchronously); a CPU tensor is
-    finished when the operation returns."""
-    if out.is_cuda:
+    """Wait until ``out`` (a tensor, or a tuple of tensors on one device)
+    is computed: ``torch.cuda.synchronize()`` for CUDA tensors (kernels are
+    queued asynchronously); a CPU tensor is finished when the operation
+    returns."""
+    first = out[0] if isinstance(out, tuple) else out
+    if first.is_cuda:
         import torch
 
-        torch.cuda.synchronize(out.device)
+        torch.cuda.synchronize(first.device)
     return out

@@ -33,11 +33,22 @@ class QuantizedLeaf(NamedTuple):
     scale: torch.Tensor    # f32 scalar (per leaf)
 
 
+_TINY = torch.finfo(torch.float32).tiny
+
+
 def quantize_int8(x: torch.Tensor) -> QuantizedLeaf:
+    # Subnormals are flushed to zero, in the input and in the scale, as XLA
+    # does on CPU and TPU, so a leaf whose largest value is below 127 times
+    # the smallest normal float quantises as the reference does: a flushed
+    # scale is 0 and every nonzero value goes to +-127.
     xf = x.float()
+    xf = torch.where(xf.abs() < _TINY, torch.zeros_like(xf), xf)
     amax = xf.abs().max()
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    scale = amax / 127.0
+    scale = torch.where(scale < _TINY, torch.zeros_like(scale), scale)
+    q = torch.where(scale > 0, torch.clamp(torch.round(xf / scale), -127, 127),
+                    127.0 * torch.sign(xf)).to(torch.int8)
+    scale = torch.where(amax > 0, scale, torch.ones_like(scale))
     return QuantizedLeaf(q=q, scale=scale)
 
 

@@ -5,7 +5,8 @@ Parameters are plain nested dicts of tensors laid out as the reference's
 (stacked units included), so weights carry across with
 :func:`~repro_torch.models.layers.params_from_numpy`. The model path reaches
 no hand kernel: attention, the SSD scan and the MoE dispatch are plain
-PyTorch, as the reference's model path reaches no Pallas kernel.
+PyTorch, as the reference's model path reaches no Pallas kernel. Latent
+attention (``mla``) and Kimi Delta Attention (``kda``) are the port's own.
 """
 
 from .attention import (
@@ -19,8 +20,8 @@ from .attention import (
 )
 from .blocks import apply_sublayer, init_unit, init_unit_state
 from .config import FFNKind, LayerKind, ModelConfig, SublayerSpec
-from .flops import (ParamCounts, decode_flops, mla_algorithm_flops, param_counts, prefill_flops,
-                    training_flops)
+from .flops import (ParamCounts, decode_flops, kda_chunk_flops, mla_algorithm_flops, param_counts,
+                    prefill_flops, training_flops)
 from .frontend import (
     AudioStubSpec,
     VisionStubSpec,
@@ -28,6 +29,7 @@ from .frontend import (
     merge_vision_embeds,
     vision_patch_embeds,
 )
+from .kda import apply_kda, kda_chunked, kda_recurrent
 from .layers import P, Params, params_from_numpy, split_params
 from .mamba2 import apply_mamba, ssd_chunked, ssd_reference
 from .model import (
@@ -60,6 +62,7 @@ __all__ = [
     "Params",
     "SublayerSpec",
     "VisionStubSpec",
+    "apply_kda",
     "apply_mamba",
     "apply_moe",
     "apply_sublayer",
@@ -80,6 +83,9 @@ __all__ = [
     "init_lm_state",
     "init_unit",
     "init_unit_state",
+    "kda_chunk_flops",
+    "kda_chunked",
+    "kda_recurrent",
     "lm_decode_inplace",
     "lm_decode_step",
     "lm_extend_inplace",

@@ -10,7 +10,7 @@ tree (KV caches / SSM states):
 * mode="prefill"  — full sequence, writes K/V + final SSM states into state.
 * mode="decode"   — single token, reads+updates state.
 * mode="extend"   — new tokens against a cache that holds ``cache_len``
-  (a host integer) before them; latent attention only.
+  (a host integer) before them; latent attention and KDA only.
 
 The serving modes write into the state tree they are given, in place, and
 return it (the reference returns a new tree; ``lm_prefill`` and
@@ -38,6 +38,7 @@ from .attention import (
     write_kv_cache,
 )
 from .config import FFNKind, LayerKind, ModelConfig, SublayerSpec
+from .kda import apply_kda, init_kda, init_kda_state
 from .layers import Params, apply_mlp, apply_norm, constrain, gather_dp, init_mlp, init_norm
 from .mamba2 import apply_mamba, init_mamba
 from .mla import init_latent_cache, init_mla, mla_attention
@@ -56,6 +57,9 @@ def init_sublayer(cfg: ModelConfig, gen: torch.Generator, spec: SublayerSpec) ->
         params["attn"] = init_mla(cfg, gen) if cfg.is_mla else init_attention(cfg, gen)
         if cfg.post_sublayer_norm:
             params["attn_post_norm"] = init_norm(cfg, cfg.d_model, dev)
+    elif spec.kind is LayerKind.KDA:
+        params["kda_norm"] = init_norm(cfg, cfg.d_model, dev)
+        params["kda"] = init_kda(cfg, gen)
     else:  # MAMBA
         params["mamba_norm"] = init_norm(cfg, cfg.d_model, dev)
         params["mamba"] = init_mamba(cfg, gen)
@@ -73,8 +77,10 @@ def init_sublayer(cfg: ModelConfig, gen: torch.Generator, spec: SublayerSpec) ->
     return params
 
 
-def init_unit(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    return {f"sub{i}": init_sublayer(cfg, gen, spec) for i, spec in enumerate(cfg.pattern_unit())}
+def init_unit(cfg: ModelConfig, gen: torch.Generator, specs=None) -> Params:
+    """One unit's sublayers (``specs``, the pattern unit by default)."""
+    specs = cfg.pattern_unit() if specs is None else specs
+    return {f"sub{i}": init_sublayer(cfg, gen, spec) for i, spec in enumerate(specs)}
 
 
 # ------------------------------------------------------------ attention ----
@@ -189,11 +195,15 @@ def apply_sublayer(
     params = gather_dp(params)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     local = spec.kind is LayerKind.ATTN_LOCAL
-    if mode == "extend" and not cfg.is_mla:
-        raise NotImplementedError("an extend step is written for latent attention only")
+    if mode == "extend" and not (spec.kind is LayerKind.KDA or (cfg.is_mla and spec.kind is LayerKind.ATTN)):
+        raise NotImplementedError("an extend step is written for latent attention and KDA only")
 
     # ---- mixer ----
-    if cfg.is_mla and spec.kind is LayerKind.ATTN:
+    if spec.kind is LayerKind.KDA:
+        h = apply_norm(cfg, params["kda_norm"], x)
+        x = x + apply_kda(cfg, params["kda"], h, mode, state)
+        mixer_out = None
+    elif cfg.is_mla and spec.kind is LayerKind.ATTN:
         h = apply_norm(cfg, params["attn_norm"], x)
         cache = state["latent"] if mode != "train" else None
         start = 0 if mode in ("train", "prefill") else cache_len
@@ -266,7 +276,9 @@ def init_sublayer_state(
     """Decode-state tree for ONE sublayer."""
     dev = resolve_device(device)
     sub: Dict[str, Any] = {}
-    if cfg.is_mla and spec.kind is LayerKind.ATTN:
+    if spec.kind is LayerKind.KDA:
+        sub.update(init_kda_state(cfg, batch, dtype, dev))
+    elif cfg.is_mla and spec.kind is LayerKind.ATTN:
         sub["latent"] = init_latent_cache(cfg, batch, max_len, dtype, dev)
     elif spec.kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
         # Windowed layers only ever read the trailing window: allocate a
@@ -290,10 +302,13 @@ def init_sublayer_state(
 
 def init_unit_state(
     cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype, device: DeviceLike = "cuda",
+    specs=None,
 ) -> Dict[str, Any]:
-    """Decode-state tree for ONE unit (unstacked)."""
+    """Decode-state tree for ONE unit (unstacked) of ``specs``, the
+    pattern unit by default."""
+    specs = cfg.pattern_unit() if specs is None else specs
     return {f"sub{i}": init_sublayer_state(cfg, spec, batch, max_len, dtype, device)
-            for i, spec in enumerate(cfg.pattern_unit())}
+            for i, spec in enumerate(specs)}
 
 
 def _round_up(x: int, m: int) -> int:

@@ -1,12 +1,17 @@
 """Unified model configuration covering all assigned architecture families
 (a copy of the reference's ``models/config.py``; the latent-attention,
-YaRN, leading-dense and ungated-shared-expert fields are the port's own,
-and their defaults leave every other configuration as the reference's).
+YaRN, leading-dense, ungated-shared-expert, Kimi Delta Attention, lead and
+tail, sigmoid-router and held-expert fields are the port's own, and their
+defaults leave every other configuration as the reference's).
 
 One ``ModelConfig`` drives dense, MoE, hybrid (attention+Mamba interleave),
 SSM-only and encoder-decoder stacks. Layer heterogeneity is expressed as a
 repeating *pattern unit*: the stack is a loop over identical units whose
-parameters are stacked along a leading ``layers`` axis.
+parameters are stacked along a leading ``layers`` axis. Around the units a
+stack may have ``first_k_dense_replace`` leading layers with a dense FFN
+(mixer ``lead_kind``) and a *tail* of layers after the last whole unit
+(``tail_kinds``): Kimi-Linear is one KDA layer, six units [KDA, KDA, MLA,
+KDA] and the tail [KDA, MLA].
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ class LayerKind(str, enum.Enum):
     ATTN = "attn"                # attention + (dense | moe) FFN
     ATTN_LOCAL = "attn_local"    # sliding-window attention + FFN
     MAMBA = "mamba"              # Mamba-2 SSD mixer (+ optional MoE FFN)
+    KDA = "kda"                  # Kimi Delta Attention: gated delta rule (+ FFN)
 
 
 class FFNKind(str, enum.Enum):
@@ -74,6 +80,19 @@ class ModelConfig:
     qk_rope_head_dim: int = 0            # rope width; the rope key is shared by all heads
     v_head_dim: int = 0
     first_k_dense_replace: int = 0       # leading dense layers before the units
+    mla_rope: bool = True                # False: the rope channels stay unrotated (NoPE)
+
+    # -- stack around the units (the port's own) ------------------------------
+    lead_kind: LayerKind = LayerKind.ATTN  # mixer of the leading dense layers
+    unit_kinds: Tuple[LayerKind, ...] = ()  # the unit's mixers; () derives them
+    tail_kinds: Tuple[LayerKind, ...] = ()  # mixers of the layers after the units
+
+    # -- Kimi Delta Attention (KDA layers) ------------------------------------
+    kda_heads: int = 0
+    kda_head_dim: int = 128              # d_k = d_v per head
+    kda_conv_kernel: int = 4             # short causal convolutions of q, k, v
+    kda_gate_rank: int = 128             # rank of the decay (f) and output-gate (g) projections
+    kda_chunk: int = 64                  # chunk length of the chunked core
 
     # -- FFN / MoE ----------------------------------------------------------
     activation: str = "swiglu"           # swiglu | geglu | gelu
@@ -87,6 +106,12 @@ class ModelConfig:
     moe_norm_topk: bool = True           # renormalise top-k weights
     moe_shared_gate: bool = True         # sigmoid gate on the shared experts
     moe_capacity_factor: float = 1.25    # gather-dispatch capacity factor
+    moe_router: str = "softmax"          # softmax | sigmoid (scores of each expert alone)
+    moe_routed_scale: float = 1.0        # the routed experts' weights scaled by this
+    # the experts (lo, hi) this device holds (expert parallelism's share):
+    # routing is over all n_experts, the layer adds only its own experts'
+    # part; None holds every expert
+    experts_held: Optional[Tuple[int, int]] = None
     router_aux_loss_coef: float = 0.001
 
     # -- Mamba-2 (SSD) -------------------------------------------------------
@@ -147,6 +172,11 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     @property
+    def n_experts_held(self) -> int:
+        lo, hi = self.experts_held or (0, self.n_experts)
+        return hi - lo
+
+    @property
     def resolved_moe_d_ff(self) -> int:
         return self.moe_d_ff if self.moe_d_ff is not None else self.d_ff
 
@@ -159,15 +189,21 @@ class ModelConfig:
     # ------------------------------------------------------- pattern logic -
     def pattern_unit(self) -> List[SublayerSpec]:
         """The repeating sublayer unit; ``len(unit)`` divides the layers
-        after the ``first_k_dense_replace`` leading dense ones."""
-        unit_len = self._unit_len()
-        specs: List[SublayerSpec] = []
-        for pos in range(unit_len):
-            specs.append(self._sublayer_at(pos))
-        return specs
+        between the ``first_k_dense_replace`` leading dense ones and the
+        tail."""
+        return [self._sublayer_at(pos) for pos in range(self._unit_len())]
+
+    def lead_spec(self) -> SublayerSpec:
+        """Each leading layer: its mixer and a dense FFN of width ``d_ff``."""
+        return SublayerSpec(kind=self.lead_kind, ffn=FFNKind.DENSE)
+
+    def pattern_tail(self) -> List[SublayerSpec]:
+        """The layers after the last whole unit, each with the FFN its
+        position would have in a unit."""
+        return [SublayerSpec(kind=kind, ffn=self._ffn_at(pos)) for pos, kind in enumerate(self.tail_kinds)]
 
     def _unit_len(self) -> int:
-        candidates = [1]
+        candidates = [len(self.unit_kinds) or 1]
         if self.local_global_alternating:
             candidates.append(2)
         if self.attn_layer_period > 1:
@@ -177,17 +213,19 @@ class ModelConfig:
         unit = 1
         for c in candidates:
             unit = _lcm(unit, c)
-        if (self.n_layers - self.first_k_dense_replace) % unit != 0:
+        if (self.n_layers - self.first_k_dense_replace - len(self.tail_kinds)) % unit != 0:
             raise ValueError(
                 f"{self.name}: n_layers={self.n_layers} less "
-                f"{self.first_k_dense_replace} leading dense not divisible by "
-                f"pattern unit {unit}"
+                f"{self.first_k_dense_replace} leading dense and {len(self.tail_kinds)} "
+                f"tail layers not divisible by pattern unit {unit}"
             )
         return unit
 
     def _sublayer_at(self, pos: int) -> SublayerSpec:
         # mixer kind
-        if self.attn_layer_period > 1:  # hybrid: attention every k-th layer
+        if self.unit_kinds:
+            kind = self.unit_kinds[pos % len(self.unit_kinds)]
+        elif self.attn_layer_period > 1:  # hybrid: attention every k-th layer
             kind = (
                 LayerKind.ATTN
                 if pos % self.attn_layer_period == self.attn_layer_offset
@@ -201,16 +239,22 @@ class ModelConfig:
             kind = LayerKind.ATTN_LOCAL
         else:
             kind = LayerKind.ATTN
-        # ffn kind
+        return SublayerSpec(kind=kind, ffn=self._ffn_at(pos))
+
+    def _ffn_at(self, pos: int) -> FFNKind:
         if self.is_moe and pos % max(self.moe_layer_period, 1) == self.moe_layer_offset:
-            ffn = FFNKind.MOE
-        else:
-            ffn = FFNKind.DENSE
-        return SublayerSpec(kind=kind, ffn=ffn)
+            return FFNKind.MOE
+        return FFNKind.DENSE
+
+    def layer_kinds(self) -> List[LayerKind]:
+        """Every layer's mixer, first to last."""
+        return ([self.lead_kind] * self.first_k_dense_replace
+                + [spec.kind for spec in self.pattern_unit()] * self.n_units
+                + list(self.tail_kinds))
 
     @property
     def n_units(self) -> int:
-        return (self.n_layers - self.first_k_dense_replace) // self._unit_len()
+        return (self.n_layers - self.first_k_dense_replace - len(self.tail_kinds)) // self._unit_len()
 
     def replace(self, **kwargs) -> "ModelConfig":
         return dataclasses.replace(self, **kwargs)

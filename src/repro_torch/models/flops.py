@@ -14,6 +14,10 @@ Conventions (PaLM-appendix style):
   :func:`mla_algorithm_flops` counts an extend step's four algorithms.
 * SSD (Mamba-2) sequence-mix FLOPs per token: 2·Q·(g·n + h·p) intra-chunk
   + 4·h·p·n inter-chunk state ops (fwd; ×3 for training).
+* KDA (Kimi Delta Attention) sequence-mix FLOPs per token: the chunked
+  core's, :func:`kda_chunk_flops` over the tokens (fwd; ×3 for training).
+* A layer that holds a share of its experts (``experts_held``) counts the
+  experts it holds; routing still picks ``top_k`` of all of them.
 
 ``MODEL_FLOPS / HLO_FLOPs`` per cell is reported in EXPERIMENTS.md §Roofline
 — it exposes remat recompute, masked-block waste and dispatch overheads.
@@ -74,6 +78,31 @@ def mla_algorithm_flops(cfg: ModelConfig, q: int, kv_len: int, batch: int = 1) -
             "decompress": batch * decompress, "decompress_chunked": batch * decompress}
 
 
+def _kda_params(cfg: ModelConfig) -> int:
+    d, h, dk, r, k = cfg.d_model, cfg.kda_heads, cfg.kda_head_dim, cfg.kda_gate_rank, cfg.kda_conv_kernel
+    hd = h * dk
+    p = 3 * d * hd            # wq, wk, wv
+    p += 3 * k * hd           # short convolutions
+    p += 2 * (d * r + r * hd)  # decay (f) and output-gate (g) projections
+    p += d * h                # beta
+    p += h + hd + dk          # A_log, dt_bias, the output norm
+    p += hd * d               # out proj
+    return p
+
+
+def kda_chunk_flops(b: int, s: int, h: int, dk: int, dv: int, chunk: int, sub: int = 16) -> float:
+    """FLOPs of :func:`~.kda.kda_chunked` at chunk length C (a sequence
+    padded to whole chunks), every product at leading order, elementwise
+    scalings left out, per chunk and head: the pairs below the diagonal
+    sub-blocks for A and P, 2·2·d_k·C·(C − sub); the diagonal sub-blocks,
+    whole, 2·2·C·sub·d_k; the UT transform's triangular solve, C²·(d_k +
+    d_v); the state pass, U = U' − W S and S ← … + K̄ᵀ U, 2·2·C·d_k·d_v;
+    the output, 2·C·d_k·d_v + 2·C²·d_v (P U with P's zero half)."""
+    n = -(-s // chunk)
+    per_chunk = (3 * chunk * chunk * (dk + dv) + 2 * chunk * sub * dk + 6 * chunk * dk * dv)
+    return float(b * n * h * per_chunk)
+
+
 def _mlp_params(cfg: ModelConfig, d_ff: int) -> int:
     mult = 3 if cfg.activation in ("swiglu", "geglu") else 2
     return mult * cfg.d_model * d_ff
@@ -86,7 +115,7 @@ def _moe_params(cfg: ModelConfig) -> Dict[str, int]:
     if cfg.n_shared_experts > 0:
         shared = _mlp_params(cfg, cfg.resolved_shared_d_ff) + (cfg.d_model if cfg.moe_shared_gate else 0)
     router = cfg.d_model * cfg.n_experts
-    total = router + cfg.n_experts * routed_each + shared
+    total = router + cfg.n_experts_held * routed_each + shared
     active = router + cfg.top_k * routed_each + shared
     return {"total": total, "active": active}
 
@@ -110,31 +139,28 @@ def param_counts(cfg: ModelConfig) -> ParamCounts:
     if not cfg.tie_embeddings:
         embed += cfg.d_model * cfg.vocab_size
 
-    total = 0
-    active = 0
-    for spec in cfg.pattern_unit():
-        if spec.kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
-            a = _attn_params(cfg)
-            total += a
-            active += a
-        else:
-            m = _mamba_params(cfg)
-            total += m
-            active += m
-        if spec.ffn is FFNKind.MOE:
-            moe = _moe_params(cfg)
-            total += moe["total"]
-            active += moe["active"]
-        elif cfg.d_ff > 0:
-            mp = _mlp_params(cfg, cfg.d_ff)
-            total += mp
-            active += mp
-    total *= cfg.n_units
-    active *= cfg.n_units
-    # leading dense layers: attention and a dense MLP each
-    lead = cfg.first_k_dense_replace * (_attn_params(cfg) + _mlp_params(cfg, cfg.d_ff))
-    total += lead
-    active += lead
+    def layers(specs):
+        total = active = 0
+        for spec in specs:
+            mixer = _mixer_params(cfg, spec.kind)
+            total += mixer
+            active += mixer
+            if spec.ffn is FFNKind.MOE:
+                moe = _moe_params(cfg)
+                total += moe["total"]
+                active += moe["active"]
+            elif cfg.d_ff > 0:
+                mp = _mlp_params(cfg, cfg.d_ff)
+                total += mp
+                active += mp
+        return total, active
+
+    unit_total, unit_active = layers(cfg.pattern_unit())
+    # leading dense layers (their mixer and a dense MLP each), then the tail
+    lead_total, lead_active = layers([cfg.lead_spec()] * cfg.first_k_dense_replace)
+    tail_total, tail_active = layers(cfg.pattern_tail())
+    total = unit_total * cfg.n_units + lead_total + tail_total
+    active = unit_active * cfg.n_units + lead_active + tail_active
 
     if cfg.is_encoder_decoder:
         enc = cfg.n_encoder_layers * (_attn_params(cfg) + _mlp_params(cfg, cfg.d_ff))
@@ -154,19 +180,19 @@ def param_counts(cfg: ModelConfig) -> ParamCounts:
     )
 
 
+def _mixer_params(cfg: ModelConfig, kind: LayerKind) -> int:
+    if kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
+        return _attn_params(cfg)
+    return _kda_params(cfg) if kind is LayerKind.KDA else _mamba_params(cfg)
+
+
 def _attn_layer_count(cfg: ModelConfig) -> Dict[str, int]:
-    full = local = mamba = 0
-    for spec in cfg.pattern_unit():
-        if spec.kind is LayerKind.ATTN:
-            full += 1
-        elif spec.kind is LayerKind.ATTN_LOCAL:
-            local += 1
-        else:
-            mamba += 1
+    kinds = cfg.layer_kinds()
     return {
-        "full": full * cfg.n_units + cfg.first_k_dense_replace,
-        "local": local * cfg.n_units,
-        "mamba": mamba * cfg.n_units,
+        "full": kinds.count(LayerKind.ATTN),
+        "local": kinds.count(LayerKind.ATTN_LOCAL),
+        "mamba": kinds.count(LayerKind.MAMBA),
+        "kda": kinds.count(LayerKind.KDA),
     }
 
 
@@ -187,6 +213,9 @@ def _seq_mix_flops_per_token(cfg: ModelConfig, s_ctx_full: float, s_ctx_local: f
         h, p = cfg.ssm_heads, cfg.ssm_head_dim
         per_mamba = 2.0 * q * (g * n + h * p) + 4.0 * h * p * n
         f += counts["mamba"] * per_mamba
+    if counts["kda"]:
+        dk = cfg.kda_head_dim
+        f += counts["kda"] * kda_chunk_flops(1, cfg.kda_chunk, cfg.kda_heads, dk, dk, cfg.kda_chunk) / cfg.kda_chunk
     if cfg.is_encoder_decoder:
         # decoder cross-attention + encoder self-attention (bidirectional)
         f += cfg.n_layers * 4.0 * cfg.encoder_seq * cfg.n_heads * hd

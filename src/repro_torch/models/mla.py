@@ -21,6 +21,10 @@ absorb for a decode step, and by new tokens against the cache's length for
 an extend step; the dispatch is a zero-length span ``rt.mla.pick.absorb``
 or ``rt.mla.pick.decompress``. The latent write is ``rt.mla.cache``.
 
+Kimi-Linear's latent attention is the NoPE variant (``mla_rope`` False):
+the ``qk_rope_head_dim`` channels stay a key part shared by every head, but
+nothing is rotated, and there is no YaRN.
+
 Departures from the published code: the rope halves are split, not
 interleaved pairs (the two differ by a fixed permutation of the rope
 projection's columns, which random weights do not see), and the RMS norm
@@ -188,11 +192,12 @@ def mla_attention(
     positions = torch.arange(s, device=x.device) + start
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
     q_nope, q_pe = q.split([dn, dr], dim=-1)
-    q_pe = apply_yarn_rope(cfg, q_pe, positions)
     kv = x @ params["wkv_a"].to(x.dtype)
     c, kr = kv.split([r, dr], dim=-1)
     c = rms_head_norm(c, params["kv_norm"], cfg.norm_eps)
-    kr = apply_yarn_rope(cfg, kr[:, :, None, :], positions)[:, :, 0]
+    if cfg.mla_rope:
+        q_pe = apply_yarn_rope(cfg, q_pe, positions)
+        kr = apply_yarn_rope(cfg, kr[:, :, None, :], positions)[:, :, 0]
     if cache is None:
         c_all, kr_all = c, kr
     else:

@@ -13,15 +13,18 @@ Public entry points (pure functions over parameter trees):
   reference's functional form, over ``lm_prefill_inplace`` /
   ``lm_decode_inplace``, which write the stacked state in place);
   ``lm_extend_inplace`` — new tokens against a filled cache (latent
-  attention only: the port's own, as is what follows)
+  attention and KDA only: the port's own, as is what follows)
 * ``init_encdec_params`` / ``encdec_forward`` / ``encdec_prefill`` /
   ``encdec_decode_step``                      — whisper-style enc-dec
 
-A config with ``first_k_dense_replace`` leading dense layers (DeepSeek-V2)
-runs them before the units: their stacked parameters are ``params["lead"]``
-and their stacked decode state ``state["lead"]``, each an attention
-sublayer and a dense MLP of width ``d_ff``. Every other config has
-neither key, and its trees are the reference's.
+A config with ``first_k_dense_replace`` leading dense layers (DeepSeek-V2,
+Kimi-Linear) runs them before the units: their stacked parameters are
+``params["lead"]`` and their stacked decode state ``state["lead"]``, each a
+sublayer of mixer ``lead_kind`` and a dense MLP of width ``d_ff``. A config
+with ``tail_kinds`` (Kimi-Linear) runs them after the units as one more
+unit of that pattern: ``params["tail"]`` and ``state["tail"]``, stacked
+once. Every other config has neither key, and its trees are the
+reference's.
 
 Activation checkpointing (``ForwardOptions.remat``) wraps the unit body, as
 the reference's ``jax.checkpoint`` does: ``full`` saves nothing inside a
@@ -52,7 +55,7 @@ from .attention import (
     update_kv_cache,
 )
 from .blocks import apply_sublayer, init_sublayer, init_sublayer_state, init_unit, init_unit_state
-from .config import FFNKind, LayerKind, ModelConfig, SublayerSpec
+from .config import ModelConfig
 from .layers import (
     Params,
     apply_mlp,
@@ -178,17 +181,16 @@ def init_lm_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda")
     axes: Params = {"embed": embed_a}
     if cfg.first_k_dense_replace:
         values["lead"], axes["lead"] = _stacked_init(
-            cfg.first_k_dense_replace, lambda: init_sublayer(cfg, gen, LEAD_SPEC))
+            cfg.first_k_dense_replace, lambda: init_sublayer(cfg, gen, cfg.lead_spec()))
     values["units"], axes["units"] = _stacked_init(cfg.n_units, lambda: init_unit(cfg, gen))
+    if cfg.tail_kinds:
+        values["tail"], axes["tail"] = _stacked_init(1, lambda: init_unit(cfg, gen, cfg.pattern_tail()))
     values["final_norm"], axes["final_norm"] = split_params(init_norm(cfg, cfg.d_model, gen.device))
 
     head_p = init_unembed(cfg, gen)
     if head_p is not None:
         values["lm_head"], axes["lm_head"] = split_params(head_p)
     return values, axes
-
-
-LEAD_SPEC = SublayerSpec(kind=LayerKind.ATTN, ffn=FFNKind.DENSE)
 
 
 def _lead(cfg: ModelConfig, params: Params, state: Optional[Dict[str, Any]] = None):
@@ -200,9 +202,17 @@ def _lead(cfg: ModelConfig, params: Params, state: Optional[Dict[str, Any]] = No
     return list(zip(_unstack(params["lead"], n), states))
 
 
-def _unit_state(state: Dict[str, Any]) -> Dict[str, Any]:
-    """The stacked units' part of a decode state."""
-    return {k: v for k, v in state.items() if k != "lead"}
+def _units(cfg: ModelConfig, params: Params, state: Optional[Dict[str, Any]] = None):
+    """(specs, params, state or None) of each unit after the leading
+    layers, in order: the stacked units, then the tail if there is one."""
+    units = _unstack(params["units"], cfg.n_units)
+    states = (_unstack({k: v for k, v in state.items() if k not in ("lead", "tail")}, cfg.n_units)
+              if state is not None else [None] * cfg.n_units)
+    out = [(cfg.pattern_unit(), p, st) for p, st in zip(units, states)]
+    if cfg.tail_kinds:
+        out.append((cfg.pattern_tail(), _unstack(params["tail"], 1)[0],
+                    _unstack(state["tail"], 1)[0] if state is not None else None))
+    return out
 
 
 def _unstack(tree: Params, n: int) -> List[Params]:
@@ -248,11 +258,10 @@ def lm_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits [b, s, vocab] f32, moe_aux)."""
     opts.check()
-    unit = cfg.pattern_unit()
     x = _inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
 
-    def unit_body(x, unit_params):
+    def unit_body(x, unit_params, unit):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         # pin the checkpoint-saved input's sharding before the interior gather
         x = constrain(x, opts.boundary_sharding)
@@ -264,18 +273,17 @@ def lm_forward(
         return constrain(x, opts.boundary_sharding), aux
 
     def lead_body(x, lead_params):
-        x, _, a = apply_sublayer(cfg, lead_params, LEAD_SPEC, x, mode="train", positions=positions,
-                                 opts=opts)
+        x, _, a = apply_sublayer(cfg, lead_params, cfg.lead_spec(), x, mode="train",
+                                 positions=positions, opts=opts)
         return x, a
 
-    body = _remat(unit_body, opts.remat)
     x = constrain(x, opts.boundary_sharding)
     auxes = []
     for lead_params, _ in _lead(cfg, params):
         x, a = _remat(lead_body, opts.remat)(x, lead_params)
         auxes.append(a)
-    for unit_params in _unstack(params["units"], cfg.n_units):
-        x, a = body(x, unit_params)
+    for unit, unit_params, _ in _units(cfg, params):
+        x, a = _remat(functools.partial(unit_body, unit=unit), opts.remat)(x, unit_params)
         auxes.append(a)
     aux = torch.stack(auxes).sum()
     # the head takes the carry gathered: a sequence still split over the
@@ -296,9 +304,12 @@ def init_lm_state(cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike
     unit_state = init_unit_state(cfg, batch, max_len, compute_dtype(cfg), device)
     state = tree_map(lambda x: x.unsqueeze(0).repeat((cfg.n_units,) + (1,) * x.ndim), unit_state)
     if cfg.first_k_dense_replace:
-        lead = init_sublayer_state(cfg, LEAD_SPEC, batch, max_len, compute_dtype(cfg), device)
+        lead = init_sublayer_state(cfg, cfg.lead_spec(), batch, max_len, compute_dtype(cfg), device)
         state["lead"] = tree_map(
             lambda x: x.unsqueeze(0).repeat((cfg.first_k_dense_replace,) + (1,) * x.ndim), lead)
+    if cfg.tail_kinds:
+        tail = init_unit_state(cfg, batch, max_len, compute_dtype(cfg), device, cfg.pattern_tail())
+        state["tail"] = tree_map(lambda x: x.unsqueeze(0), tail)
     return state
 
 
@@ -314,14 +325,12 @@ def lm_prefill_inplace(
     into ``state`` in place through per-layer views of its stacked leaves.
     Returns the last token's logits [b, vocab] f32."""
     opts.check()
-    unit = cfg.pattern_unit()
     x = _inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     for lead_params, lead_state in _lead(cfg, params, state):
-        x, _, _ = apply_sublayer(cfg, lead_params, LEAD_SPEC, x, mode="prefill", positions=positions,
-                                 state=lead_state, opts=opts)
-    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units),
-                                       _unstack(_unit_state(state), cfg.n_units)):
+        x, _, _ = apply_sublayer(cfg, lead_params, cfg.lead_spec(), x, mode="prefill",
+                                 positions=positions, state=lead_state, opts=opts)
+    for unit, unit_params, unit_state in _units(cfg, params, state):
         x = constrain(x, opts.interior_sharding)
         for i, spec in enumerate(unit):
             x, _, _ = apply_sublayer(cfg, unit_params[f"sub{i}"], spec, x, mode="prefill",
@@ -357,7 +366,7 @@ def lm_extend_inplace(
 ) -> torch.Tensor:
     """Extend a filled cache by ``s`` tokens at once (a re-asked document's
     new question), writing into ``state`` in place; returns every new
-    token's logits [b, s, vocab] f32. Latent attention only."""
+    token's logits [b, s, vocab] f32. Latent attention and KDA only."""
     opts.check()
     return _step(cfg, params, state, tokens, int(cache_len), "extend", opts)
 
@@ -365,13 +374,11 @@ def lm_extend_inplace(
 def _step(cfg, params, state, tokens, cache_len, mode, opts) -> torch.Tensor:
     """Decode or extend: the new tokens through every layer against the
     state, written in place; their logits [b, s, vocab] f32."""
-    unit = cfg.pattern_unit()
     x = embed_tokens(cfg, params["embed"], tokens)
     for lead_params, lead_state in _lead(cfg, params, state):
-        x, _, _ = apply_sublayer(cfg, lead_params, LEAD_SPEC, x, mode=mode, state=lead_state,
+        x, _, _ = apply_sublayer(cfg, lead_params, cfg.lead_spec(), x, mode=mode, state=lead_state,
                                  cache_len=cache_len, opts=opts)
-    for unit_params, unit_state in zip(_unstack(params["units"], cfg.n_units),
-                                       _unstack(_unit_state(state), cfg.n_units)):
+    for unit, unit_params, unit_state in _units(cfg, params, state):
         for i, spec in enumerate(unit):
             x, _, _ = apply_sublayer(cfg, unit_params[f"sub{i}"], spec, x, mode=mode,
                                      state=unit_state[f"sub{i}"], cache_len=cache_len, opts=opts)

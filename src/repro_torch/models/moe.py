@@ -15,6 +15,13 @@ dimension of one computation (:func:`_gather_groups`), so the expert weights
 are read once for all groups. JAX's out-of-bounds scatters (``mode="drop"``)
 become writes into a spare column that is sliced away: no boolean masking,
 no sort and no ``bincount``, so nothing waits for the device.
+
+The port's own additions: a sigmoid router (``moe_router``; each expert's
+score alone, the top-k renormalised, as Kimi's), a scale on the routed
+experts' weights (``moe_routed_scale``), and a layer told which experts it
+holds (``experts_held`` = (lo, hi), expert parallelism's share): it routes
+over all ``n_experts``, holds the weights of its own, and adds only their
+part of the result; the shared expert is computed on every share alike.
 """
 
 from __future__ import annotations
@@ -31,10 +38,10 @@ from .layers import Params, constrain, gelu_tanh, is_dtensor, normal_init, param
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator) -> Params:
     dt = param_dtype(cfg)
-    e, d, f = cfg.n_experts, cfg.d_model, cfg.resolved_moe_d_ff
+    e, d, f = cfg.n_experts_held, cfg.d_model, cfg.resolved_moe_d_ff
     out_std = 0.02 / np.sqrt(2 * cfg.n_layers)
     params: Params = {
-        "router": normal_init(gen, (d, e), ("embed", None), dt),
+        "router": normal_init(gen, (d, cfg.n_experts), ("embed", None), dt),
         "wi": normal_init(gen, (e, d, f), ("experts", "embed", "moe_ffn"), dt),
         "wg": normal_init(gen, (e, d, f), ("experts", "embed", "moe_ffn"), dt),
         "wo": normal_init(gen, (e, f, d), ("experts", "moe_ffn", "embed"), dt, out_std),
@@ -63,10 +70,12 @@ def _routing(
     """Router on [..., T, d]: probs [..., T, E], top-k weights [..., T, k],
     indices [..., T, k], aux loss [...] (one per group)."""
     logits = x.float() @ params["router"].float()
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.sigmoid(logits) if cfg.moe_router == "sigmoid" else torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)  # jax.lax.top_k
     if cfg.moe_norm_topk:
         top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    if cfg.moe_routed_scale != 1.0:
+        top_w = top_w * cfg.moe_routed_scale
     # Switch-style load-balance aux loss: the share of assignments each
     # expert takes (counted as integers) against its mean probability.
     e = cfg.n_experts
@@ -125,30 +134,32 @@ def _gather_groups(cfg: ModelConfig, params: Params, x: torch.Tensor,
     of the reference's scatter-add into the sentinel-padded [T+1, d] buffer,
     added in a fixed order (no atomics), so a run repeats bit for bit.
 
-    ``experts`` = (lo, hi) runs only experts lo..hi-1 (the ones whose
-    weights ``params`` holds) and gives the others' rows zero: each rank's
-    share of an expert-parallel layer, summed across the ranks."""
+    ``experts`` = (lo, hi) (``cfg.experts_held`` by default) runs only
+    experts lo..hi-1 (the ones whose weights ``params`` holds) and gives
+    the others' assignments a zero row: each rank's share of an
+    expert-parallel layer, summed across the ranks."""
     g, t, d = x.shape
     e, k, cap = cfg.n_experts, cfg.top_k, capacity(cfg, t)
+    lo, hi = experts or cfg.experts_held or (0, e)
     _, top_w, top_i, aux = _routing(cfg, params, x)
     disp, slot = dispatch_table(cfg, top_i)                      # [G, E, C], [G, T*k]
     groups = torch.arange(g, device=x.device)
 
     # gather: row T of each group is the zero sentinel of unfilled slots
     x_pad = torch.cat([x, x.new_zeros((g, 1, d))], dim=1).view(g * (t + 1), d)
-    if experts is None:
-        rows = (disp + (groups * (t + 1))[:, None, None]).transpose(0, 1).reshape(-1)
-        ye = _expert_ffn(cfg, params, x_pad.index_select(0, rows).view(e, g * cap, d))
-    else:
-        lo, hi = experts
-        rows = (disp[:, lo:hi] + (groups * (t + 1))[:, None, None]).transpose(0, 1).reshape(-1)
-        ye = _expert_ffn(cfg, params, x_pad.index_select(0, rows).view(hi - lo, g * cap, d))
-        ye = torch.cat([ye.new_zeros((lo, g * cap, d)), ye, ye.new_zeros((e - hi, g * cap, d))])
+    rows = (disp[:, lo:hi] + (groups * (t + 1))[:, None, None]).transpose(0, 1).reshape(-1)
+    ye = _expert_ffn(cfg, params, x_pad.index_select(0, rows).view(hi - lo, g * cap, d))
 
-    # combine: slot C of each (expert, group) is a zero row for dropped ones
-    ye = torch.cat([ye.view(e, g, cap, d), ye.new_zeros((e, g, 1, d))], dim=2).view(-1, d)
+    # combine: slot C of each (expert, group) is a zero row for dropped
+    # ones, and the last row a zero row for experts held elsewhere
+    n = hi - lo
+    ye = torch.cat([ye.view(n, g, cap, d), ye.new_zeros((n, g, 1, d))], dim=2).view(-1, d)
     flat_e = top_i.reshape(g, t * k)
-    rows = (flat_e * (g * (cap + 1)) + (groups * (cap + 1))[:, None] + slot).reshape(-1)
+    rows = (flat_e - lo) * (g * (cap + 1)) + (groups * (cap + 1))[:, None] + slot
+    if n != e:
+        ye = torch.cat([ye, ye.new_zeros((1, d))])
+        rows = torch.where((flat_e >= lo) & (flat_e < hi), rows, n * g * (cap + 1))
+    rows = rows.reshape(-1)
     out = ye.index_select(0, rows).view(g, t, k, d) * top_w.to(x.dtype)[..., None]
     return out.sum(dim=2), aux
 
@@ -256,12 +267,13 @@ def moe_dense(cfg: ModelConfig, params: Params, x2d: torch.Tensor,
     params = _pin(params, shardings)
     t, d = x2d.shape
     e = cfg.n_experts
+    lo, hi = cfg.experts_held or (0, e)
     _, top_w, top_i, aux = _routing(cfg, params, x2d)
     combine = torch.zeros((t, e), dtype=torch.float32, device=x2d.device)
     combine.scatter_add_(1, top_i, top_w.float())                # [T, E]
 
-    ye = _expert_ffn(cfg, params, x2d[None].expand(e, t, d))    # [E, T, d]
-    out = torch.einsum("etd,te->td", ye.float(), combine).to(x2d.dtype)
+    ye = _expert_ffn(cfg, params, x2d[None].expand(hi - lo, t, d))  # [E held, T, d]
+    out = torch.einsum("etd,te->td", ye.float(), combine[:, lo:hi]).to(x2d.dtype)
 
     if cfg.n_shared_experts > 0:
         out = out + _shared_expert(cfg, params["shared"], x2d)

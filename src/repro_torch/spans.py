@@ -35,6 +35,15 @@ device's activity:
 - ``rt.mla.pick.absorb`` or ``rt.mla.pick.decompress``: zero-length, one
   per call, at the dispatcher that chose the order
   (:func:`repro_torch.models.mla.pick_algorithm`): counters.
+- ``rt.kda.conv``: a KDA layer's short convolutions of q, k and v and the
+  write of their windows into the layer's state;
+  ``rt.kda.gates``: its decay g and its β (:func:`repro_torch.models.kda.apply_kda`);
+- ``rt.kda.chunk``: the chunked core (:func:`repro_torch.models.kda.kda_chunked`),
+  and inside it ``rt.kda.pass``: its sequential state pass, one chunk after
+  another;
+- ``rt.kda.state``: the recurrent state updated by a decode step and
+  written into the layer's state in place, or the chunked core's final
+  state written there.
 
 Spans fire where the host runs the program's Python: eagerly, in a
 capture's warm-up and during the capture itself, never in a CUDA graph's

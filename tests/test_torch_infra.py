@@ -299,6 +299,21 @@ def test_quantize_roundtrip_error_bound_and_reference(values):
     assert float(leaf.scale) == float(ref.scale)
 
 
+@pytest.mark.parametrize("values", [
+    [1.1754944e-38], [1e-40], [1e-40, 0.5], [1.2e-38, 0.0], [1e-36],
+    [1.17e-38, -1e-40], [1.5e-36, 1e-40], [2e-36, 1e-38], [0.0], [-3e-37, 0.0, 2e-37],
+])
+def test_quantize_subnormals_flushed_as_reference(values):
+    # leaves whose scale or values fall below the smallest normal float
+    x = np.asarray(values, np.float32)
+    leaf = quantize_int8(torch.from_numpy(x))
+    ref = rcomp.quantize_int8(jnp.asarray(x))
+    np.testing.assert_array_equal(leaf.q.numpy(), np.asarray(ref.q))
+    assert float(leaf.scale) == float(ref.scale)
+    np.testing.assert_array_equal(dequantize_tree({"w": leaf})["w"].numpy(),
+                                  np.asarray(rcomp.dequantize_int8(ref)))
+
+
 def test_error_feedback_bounded():
     rng = np.random.default_rng(0)
     res = ErrorFeedback.init({"w": torch.zeros(128)})
